@@ -1,0 +1,314 @@
+"""On-card smoke run of the PyTorch/CUDA port (peps_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, one line each (failures exit non-zero before the last line):
+  1. device and build: the card's name and power limit, then K1 (CUDA C++
+     via nvcc) and K2 (Triton) built from the checkout's sources;
+  2. every kernel against its plain PyTorch version at every main-path
+     shape, float32 (tolerance 1e-5) and float64 (1e-12), errors as
+     max |kernel - plain| / max |plain|, with both times;
+  3. the main path through the user entry points: product_peps (Neel) ->
+     simple_update -> to_tps -> vmc_optimize (SR by CG) on 8x8 Heisenberg,
+     D=8, chi=32, sketch, 32 chains, f32, 3 iterations; energies finite
+     with E/site in (-0.70, -0.40), every kernel launched;
+  4. the sketch-vs-svd accuracy gate: local energies of 16 sampled
+     configurations under both compression schemes, max relative
+     difference < 1e-2.
+The line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+
+LY = LX = 8
+D = 8
+CHI = 32
+NCHAINS = 32
+PHYS = 2
+SU_STEPS = 40
+WARMUP_SWEEPS = 2
+SR_ITERS = 3
+TOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+def fail(msg):
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(phase, **kv):
+    print(json.dumps({"phase": phase, **kv}), flush=True)
+
+
+def time_ms(fn, reps):
+    """Mean device time of fn() in ms over reps launches (CUDA events),
+    after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_err(out, ref):
+    err = (out - ref).abs().max().item()
+    return err, err / max(ref.abs().max().item(), 1e-300)
+
+
+def k1_cases(dtype, device, gen):
+    """K1 operands at the shapes and broadcast patterns the main path gives
+    it (8x8, D=8, chi=32, 32 chains, d=2): (name, form, env, top, site, bot)."""
+    import torch
+    nc, lx, ly, d, losk = NCHAINS, LX, LY, PHYS, CHI + 8
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=device, dtype=dtype)
+
+    env = (CHI, D, CHI)
+    z = r(D * CHI, CHI).reshape(D, CHI, CHI).permute(2, 0, 1)
+    y = r(D, losk, losk).permute(1, 0, 2)
+    return [
+        ("sketch_v_step", "right", r(nc, *env), r(nc, *env), r(nc, D, D, D, D), z),
+        ("sketch_w_step", "left", r(nc, CHI, D, losk), r(nc, *env),
+         r(nc, D, D, D, D), y),
+        ("right_btens", "right", r(nc, *env), r(nc, *env), r(nc, D, D, D, D),
+         r(nc, *env)),
+        ("bond_step", "left", r(nc, 1, *env), r(nc, 1, *env), r(d, D, D, D, D),
+         r(nc, 1, *env)),
+        ("row_envs", "left", r(nc, ly, *env), r(nc, ly, *env),
+         r(nc, ly, D, D, D, D), r(nc, ly, *env)),
+        ("right_blocks", "right", r(nc, lx - 1, 1, *env), r(nc, lx - 1, 1, *env),
+         r(lx - 1, d, D, D, D, D), r(nc, lx - 1, 1, *env)),
+        ("nn_traces", "left", r(nc, ly, lx - 1, 1, *env),
+         r(nc, ly, lx - 1, 1, *env), r(ly, lx - 1, d, D, D, D, D),
+         r(nc, ly, lx - 1, 1, *env)),
+    ]
+
+
+def phase_kernels(device):
+    """Phase 2: K1 and K2 vs their plain versions. Returns per-kernel
+    records (f32 numbers at the largest main-path shape)."""
+    import torch
+    from peps_tpu_torch.kernels import centered_o as k2
+    from peps_tpu_torch.kernels import col_transfer as k1
+
+    gen = torch.Generator(device=device).manual_seed(1234)
+    rec = {"col_transfer": {"max_abs_err": 0.0}, "centered_o": {"max_abs_err": 0.0}}
+    for dtype in (torch.float32, torch.float64):
+        tol = TOL[str(dtype).split(".")[1]]
+        for name, form, env, top, site, bot in k1_cases(dtype, device, gen):
+            if form == "right":
+                kern = lambda: k1.col_transfer_right(env, top, site, bot)
+                plain = lambda: k1.col_transfer_right(
+                    env, top, site, bot, transfer=k1.col_transfer_plain)
+            else:
+                kern = lambda: k1.col_transfer(env, top, site, bot)
+                plain = lambda: k1.col_transfer_plain(env, top, site, bot)
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            abs_err, rel = max_err(out, ref)
+            ms, plain_ms = time_ms(kern, 10), time_ms(plain, 10)
+            batch = tuple(out.shape[:-3])
+            log("kernels", kernel="col_transfer", case=name, form=form,
+                dtype=str(dtype), batch=batch, items=math.prod(batch),
+                rel_err=rel, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+            if not (rel <= tol):
+                fail(f"col_transfer {name} {dtype}: rel err {rel} > {tol}")
+            if dtype == torch.float32:
+                r = rec["col_transfer"]
+                r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+                if name == "nn_traces":
+                    r.update(ms=ms, plain_ms=plain_ms)
+        ns, sites, k = NCHAINS, LY * LX, D ** 4
+        holes = torch.randn(ns, sites, k, generator=gen, device=device,
+                            dtype=dtype)
+        psi = torch.randn(ns, sites, generator=gen, device=device, dtype=dtype)
+        cfg = torch.randint(0, PHYS, (ns, sites), generator=gen, device=device)
+        kern = lambda: k2.centered_o(holes, psi, cfg, PHYS)
+        plain = lambda: k2.centered_o_plain(holes, psi, cfg, PHYS)
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        abs_err, rel = max_err(out, ref)
+        ms, plain_ms = time_ms(kern, 20), time_ms(plain, 20)
+        gbs = (2 * holes.numel() + out.numel()) * holes.element_size() / ms / 1e6
+        log("kernels", kernel="centered_o", case="sr_buffer", dtype=str(dtype),
+            shape=tuple(out.shape), rel_err=rel, max_abs_err=abs_err, ms=ms,
+            plain_ms=plain_ms, effective_GBps=gbs)
+        if not (rel <= tol):
+            fail(f"centered_o {dtype}: rel err {rel} > {tol}")
+        if dtype == torch.float32:
+            rec["centered_o"].update(max_abs_err=abs_err, ms=ms,
+                                     plain_ms=plain_ms)
+    return rec
+
+
+def phase_main_path(device):
+    """Phase 3: SU -> to_tps -> vmc_optimize(SR), through the entry points.
+    Returns (result, tps, launches)."""
+    import numpy as np
+    import torch
+    from peps_tpu_torch.algorithm.mc_evaluator import MCParams
+    from peps_tpu_torch.algorithm.vmc_optimize import VMCParams, vmc_optimize
+    from peps_tpu_torch.kernels.centered_o import centered_o
+    from peps_tpu_torch.kernels.col_transfer import col_transfer
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.optimizer.cg import CGParams
+    from peps_tpu_torch.optimizer.optimizer import OptimizerParams, SRParams
+    from peps_tpu_torch.peps import (SimpleUpdateParams, product_peps,
+                                     simple_update, to_tps)
+
+    model = spin.heisenberg()
+    n = LY * LX
+    stamps = []
+
+    def on_iter(rec, state):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        log("main_path", iteration=rec.step, energy=rec.energy,
+            energy_per_site=rec.energy / n, energy_error=rec.energy_error,
+            accept_rate=rec.accept_rate, sr_iters=rec.sr_iters,
+            eval_s=rec.eval_seconds, update_s=rec.update_seconds)
+
+    col_transfer.launches = 0
+    centered_o.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    occ = np.indices((LY, LX)).sum(0) % 2
+    peps0 = product_peps(LY, LX, D, occ, PHYS, dtype=torch.float32,
+                         device=device)
+    su = simple_update(peps0, model.h_h, model.h_v,
+                       SimpleUpdateParams(SU_STEPS, 0.1,
+                                          TruncParams(D, 1, 1e-8)))
+    tps = to_tps(su.peps)
+    tps = tps / tps.abs().max()
+    torch.cuda.synchronize()
+    t_su = time.perf_counter()
+    params = VMCParams(
+        CHI, TruncParams(CHI, 1, 1e-6, scheme="sketch"),
+        MCParams(num_samples=1, num_warmup_sweeps=WARMUP_SWEEPS,
+                 nchains=NCHAINS),
+        OptimizerParams(SR_ITERS, SRParams(CGParams(30, 1e-5), diag_shift=1e-3),
+                        lr=0.05),
+        occupancy=((0, n // 2), (1, n - n // 2)))
+    gen = torch.Generator(device=device).manual_seed(2)
+    res = vmc_optimize(tps, model, params, gen, callback=on_iter)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = {"col_transfer": col_transfer.launches,
+                "centered_o": centered_o.launches}
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    log("main_path", su_steps=SU_STEPS, su_s=t_su - t0,
+        su_energy_per_site=su.estimated_e0 / n, vmc_s=t_end - t_su,
+        seconds_per_train_step_after_first=step_s,
+        mean_seconds_per_train_step=sum(step_s) / max(len(step_s), 1),
+        launches=launches, peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9)
+    e_site = [e / n for e in res.energies]
+    if not all(math.isfinite(e) for e in e_site):
+        fail(f"non-finite energies {res.energies}")
+    if not all(-0.70 < e < -0.40 for e in e_site):
+        fail(f"energy per site {e_site} outside (-0.70, -0.40)")
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"kernel {name} was not launched on the main path")
+    return res, launches
+
+
+def phase_gate(res):
+    """Phase 4: sketch vs svd local energies on 16 sampled configurations."""
+    import torch
+    from peps_tpu_torch.algorithm.energy import (ModelTensors,
+                                                 local_energy_and_holes)
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+
+    tps = res.state
+    cfgs = res.final_configs[:16]
+    mt = ModelTensors.from_model(spin.heisenberg(), tps.dtype, tps.device)
+    t0 = time.perf_counter()
+    e = {}
+    for scheme in ("sketch", "svd"):
+        e[scheme] = local_energy_and_holes(
+            tps, cfgs, mt, CHI, TruncParams(CHI, 1, 1e-6, scheme=scheme),
+            with_holes=False).e_loc
+    torch.cuda.synchronize()
+    finite = torch.isfinite(e["sketch"]) & torch.isfinite(e["svd"])
+    rel = ((e["sketch"] - e["svd"]).abs()
+           / e["svd"].abs().clamp(min=1e-12))[finite]
+    gate = rel.max().item() if rel.numel() else float("nan")
+    log("gate", configs=int(cfgs.shape[0]), nonfinite=int((~finite).sum()),
+        accuracy_rel_diff_sketch_vs_svd=gate, seconds=time.perf_counter() - t0)
+    if not (gate < 1e-2) or not bool(finite.all()):
+        fail(f"sketch-vs-svd gate {gate} (non-finite {int((~finite).sum())})")
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: chip_smoke.py runs only on a GPU")
+    try:
+        import peps_tpu_torch  # noqa: F401
+        from peps_tpu_torch.kernels._build import cuda_library
+        from peps_tpu_torch.kernels.centered_o import centered_o
+    except ImportError as exc:
+        fail(f"peps_tpu_torch is not importable here: {exc}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+          else f"nvidia-smi unavailable: {smi.stderr.strip()}", flush=True)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    name = torch.cuda.get_device_name(0)
+
+    t0 = time.perf_counter()
+    built = cuda_library()
+    t1 = time.perf_counter()
+    # Triton compiles K2 at its first launch: launch it once per dtype at
+    # the main path's specialization (Ns = 32, sizes divisible by 16)
+    for dtype in (torch.float32, torch.float64):
+        centered_o(torch.zeros(NCHAINS, 16, 16, dtype=dtype, device=device),
+                   torch.ones(NCHAINS, 16, dtype=dtype, device=device),
+                   torch.zeros(NCHAINS, 16, dtype=torch.int64, device=device),
+                   PHYS)
+    torch.cuda.synchronize()
+    log("build", device=name, k1_nvcc_s=built.seconds, k1_load_s=t1 - t0,
+        k1_library=built.path.name,
+        ptxas=[ln for ln in built.log.splitlines() if "ptxas info" in ln],
+        k2_triton_compile_s=time.perf_counter() - t1)
+
+    kern = phase_kernels(device)
+    res, launches = phase_main_path(device)
+    phase_gate(res)
+
+    record = {"kernels": [
+        {"name": "col_transfer", "route": "cuda",
+         "source": "peps_tpu_torch/csrc/col_transfer.cu",
+         "replaces": "peps_tpu/contraction/bmps.py:250",
+         "launches": launches["col_transfer"], **kern["col_transfer"]},
+        {"name": "centered_o", "route": "triton",
+         "source": "peps_tpu_torch/kernels/centered_o.py",
+         "replaces": "peps_tpu/algorithm/mc_evaluator.py:316",
+         "launches": launches["centered_o"], **kern["centered_o"]},
+    ]}
+    print(json.dumps(record), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

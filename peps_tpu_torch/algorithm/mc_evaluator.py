@@ -1,0 +1,139 @@
+"""Monte Carlo energy/gradient evaluator (port of the OBC bosonic path of
+``peps_tpu/algorithm/mc_evaluator.py``).
+
+Per sample step: one sweep of every chain, then local energies and holes of
+every chain. The bottom env stacks built for the evaluation are handed to
+the next step's first sweep (the pre-sweep network is exactly the evaluated
+one), as in the reference. For SR the holes of all steps are kept and the
+centered, scaled sample matrix is written once by kernel K2; the
+un-centered O buffer is never formed. The reference's 1D flattening of the
+holes is a TPU tile-padding workaround and is not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from peps_tpu_torch.algorithm.energy import (ModelTensors, _local_energy,
+                                             o_tensor_of)
+from peps_tpu_torch.contraction import bmps
+from peps_tpu_torch.kernels.centered_o import centered_o
+from peps_tpu_torch.lattice import transpose_tps
+from peps_tpu_torch.linalg import TruncParams
+from peps_tpu_torch.montecarlo.statistics import mean_and_binned_error
+from peps_tpu_torch.montecarlo.sweep import mc_sweep
+from peps_tpu_torch.optimizer.optimizer import Evaluation
+from peps_tpu_torch.tps import project
+
+
+@dataclasses.dataclass(frozen=True)
+class MCParams:
+    num_samples: int = 100          # sample steps (one sweep each) per chain
+    num_warmup_sweeps: int = 100
+    nchains: int = 64
+
+
+UniformSource = Callable[[], tuple]
+
+
+def _mc_collect(tps, configs, model: ModelTensors, chi, trunc, n_samples,
+                with_sr, uniform_source):
+    """Sample loop, one sweep per sample step (the reference's default
+    sweeps_between_samples = 1; other values are not ported). Returns
+    (configs', accepted, trials, outs) with outs a
+    dict: e_locs [S, nc], log_psi [S, nc]; with SR: holes [S, nc, Ly, Lx,
+    D^4], psi_loc [S, nc, Ly, Lx], cfgs [S, nc, Ly, Lx]; with a plain
+    gradient: o_sum and eo_sum [P] (sums of O and E_loc O over samples)."""
+    tps_t = transpose_tps(tps)
+    ly, lx, d = tps.shape[0], tps.shape[1], tps.shape[2]
+    configs = configs.long()
+    ftops, _ = bmps.all_top_envs(bmps.flip_vertical(project(tps, configs)),
+                                 chi, trunc)
+    bots = torch.flip(ftops, [-5])
+    acc = torch.zeros((), dtype=torch.int64, device=tps.device)
+    tri = torch.zeros_like(acc)
+    outs = {"e_locs": [], "log_psi": [], "holes": [], "psi_loc": [],
+            "cfgs": []}
+    o_sum = eo_sum = None
+    for _ in range(n_samples):
+        configs, st = mc_sweep(tps, tps_t, configs, chi, trunc,
+                               uniforms=uniform_source(), bots=bots)
+        acc = acc + st.accepted
+        tri = tri + st.trials
+        stacks = bmps.all_env_stacks(project(tps, configs), chi, trunc)
+        bots = stacks.bots
+        e, rp, log_abs, _ = _local_energy(tps, configs, model, chi, trunc,
+                                          stacks)
+        outs["e_locs"].append(e)
+        outs["log_psi"].append(log_abs)
+        if with_sr:
+            nc = configs.shape[0]
+            outs["holes"].append(rp.holes.reshape(nc, ly, lx, -1))
+            outs["psi_loc"].append(rp.psi_loc)
+            outs["cfgs"].append(configs)
+        else:
+            o = o_tensor_of(rp.holes, rp.psi_loc, configs, d) \
+                .reshape(configs.shape[0], -1)
+            step_o = o.conj().sum(0)
+            step_eo = (e[:, None] * o.conj()).sum(0)
+            o_sum = step_o if o_sum is None else o_sum + step_o
+            eo_sum = step_eo if eo_sum is None else eo_sum + step_eo
+    outs = {k: torch.stack(v) for k, v in outs.items() if v}
+    if o_sum is not None:
+        outs["o_sum"], outs["eo_sum"] = o_sum, eo_sum
+    return configs, acc, tri, outs
+
+
+def _center_scale(holes, psi_loc, cfgs, d):
+    """The centered, sqrt(Ns)-scaled SR sample matrix a [Ns, P] through
+    kernel K2; holes [S, nc, Ly, Lx, K], psi_loc/cfgs [S, nc, Ly, Lx]."""
+    s, nc, ly, lx, k = holes.shape
+    ns = s * nc
+    return centered_o(holes.reshape(ns, ly * lx, k),
+                      psi_loc.reshape(ns, ly * lx),
+                      cfgs.reshape(ns, ly * lx), d)
+
+
+def mc_energy_grad(tps, configs, model: ModelTensors, chi: int,
+                   trunc: TruncParams, params: MCParams,
+                   uniform_source: UniformSource,
+                   with_sr_buffers: bool = False):
+    """One VMC energy/gradient estimate. Returns (Evaluation, configs',
+    log_psi [S, nc]).
+
+    g = 2 Re <conj(O) (E_loc - E)> for a real state, as the reference.
+    uniform_source() returns each sweep's uniforms (u_h, u_v). Reads one
+    integer (the non-finite sample count) back to the host."""
+    configs, acc, tri, outs = _mc_collect(
+        tps, configs, model, chi, trunc, params.num_samples, with_sr_buffers,
+        uniform_source)
+    e_locs = outs["e_locs"]
+    s, c = e_locs.shape
+    n = s * c
+    energy, err = mean_and_binned_error(e_locs.real)
+    nonfinite = int((~torch.isfinite(e_locs.real)).sum())
+    aux = {"nonfinite_samples": nonfinite} if nonfinite else None
+    accept = acc / torch.clamp(tri, min=1)
+    real = not tps.is_complex()
+    if with_sr_buffers:
+        a = _center_scale(outs["holes"], outs["psi_loc"], outs["cfgs"],
+                          tps.shape[2])
+        root = torch.sqrt(torch.tensor(float(n), dtype=a.dtype,
+                                       device=a.device))
+        eps = (e_locs.reshape(n) - energy).to(a.dtype) / root
+        if real:
+            eps = 2.0 * eps
+        grad = a.mH @ eps
+        if real:
+            grad = grad.real
+        grad = grad.reshape(tps.shape).to(tps.dtype)
+        ev = Evaluation(energy, grad, err, a, eps, accept, aux)
+    else:
+        grad = outs["eo_sum"] / n - energy * (outs["o_sum"] / n)
+        if real:
+            grad = 2.0 * grad.real
+        ev = Evaluation(energy, grad.reshape(tps.shape).to(tps.dtype), err,
+                        None, None, accept, aux)
+    return ev, configs, outs["log_psi"]

@@ -1,0 +1,112 @@
+"""VMC optimization executor (port of the OBC bosonic branch of
+``peps_tpu/algorithm/vmc_optimize.py``): initial configurations ->
+validity rescue -> state normalization -> warm-up sweeps ->
+:func:`iterative_optimize` over :func:`mc_energy_grad`.
+
+Randomness comes from one ``torch.Generator`` on the state's device:
+configurations, the rescue donors and every sweep's uniforms. The parity
+tests replace the last with the reference's replayed uniforms
+(``sweep_uniforms``) and pass the reference's initial configurations.
+Open boundaries only: PBC (a ``bc`` field) and fermionic models come with
+ROADMAP queue 1, items 10-12.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+
+from peps_tpu_torch.algorithm.energy import ModelTensors
+from peps_tpu_torch.algorithm.mc_evaluator import MCParams, mc_energy_grad
+from peps_tpu_torch.lattice import transpose_tps
+from peps_tpu_torch.linalg import TruncParams
+from peps_tpu_torch.montecarlo.engine import (ensure_validity,
+                                              init_configs_occupancy,
+                                              init_configs_uniform,
+                                              normalize_state_order1)
+from peps_tpu_torch.montecarlo.sweep import UpdateRule, draw_uniforms, \
+    mc_sweep
+from peps_tpu_torch.optimizer.optimizer import (OptimizerParams, SRParams,
+                                                iterative_optimize)
+
+
+@dataclasses.dataclass(frozen=True)
+class VMCParams:
+    chi: int
+    trunc: TruncParams
+    mc: MCParams
+    optimizer: OptimizerParams
+    rule: UpdateRule = UpdateRule("exchange")   # only exchange is ported
+    occupancy: tuple | None = None   # ((state, count), ...) or None = uniform
+
+
+class VMCResult(NamedTuple):
+    state: torch.Tensor
+    lowest_state: torch.Tensor
+    energies: list
+    lowest_energy: float
+    records: list
+    final_configs: torch.Tensor
+
+
+def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
+                 generator: torch.Generator | None = None,
+                 configs: torch.Tensor | None = None,
+                 sweep_uniforms: Callable[[], tuple] | None = None,
+                 callback=None) -> VMCResult:
+    """Optimize a real or complex OBC TPS for a bosonic model.
+
+    generator: a ``torch.Generator`` on tps.device (default: seeded 0).
+    configs: optional initial configurations [nc, Ly, Lx] (default: drawn
+    from params.occupancy). sweep_uniforms: optional callable returning each
+    sweep's uniforms (u_h, u_v) in order (default: drawn from generator)."""
+    ly, lx, d = tps.shape[0], tps.shape[1], tps.shape[2]
+    dev = tps.device
+    if getattr(model, "phys_dim", d) != d:
+        raise ValueError(f"model physical dimension {model.phys_dim} != TPS "
+                         f"physical dimension {d} (tps shape {tps.shape})")
+    mt = model if isinstance(model, ModelTensors) \
+        else ModelTensors.from_model(model, tps.dtype, dev)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    if sweep_uniforms is None:
+        rdt = tps.real.dtype if tps.is_complex() else tps.dtype
+        nc = params.mc.nchains if configs is None else configs.shape[0]
+
+        def sweep_uniforms():
+            return draw_uniforms(generator, nc, ly, lx, rdt, dev)
+
+    if configs is None:
+        if params.occupancy is not None:
+            configs = init_configs_occupancy(generator, params.mc.nchains, ly,
+                                             lx, dict(params.occupancy), dev)
+        else:
+            configs = init_configs_uniform(generator, params.mc.nchains, ly,
+                                           lx, d, dev)
+    configs = configs.to(dev).long()
+    configs, _ = ensure_validity(tps, configs, generator, params.chi,
+                                 params.trunc)
+    tps = normalize_state_order1(tps, configs, params.chi, params.trunc)
+
+    tps_t = transpose_tps(tps)
+    for _ in range(params.mc.num_warmup_sweeps):
+        configs, _ = mc_sweep(tps, tps_t, configs, params.chi, params.trunc,
+                              uniforms=sweep_uniforms())
+
+    sampler = {"configs": configs}
+    needs_sr = isinstance(params.optimizer.algorithm, SRParams)
+
+    def evaluate(state, step):
+        ev, cfgs, _ = mc_energy_grad(
+            state, sampler["configs"], mt, params.chi, params.trunc,
+            params.mc, sweep_uniforms,
+            with_sr_buffers=needs_sr)
+        sampler["configs"] = cfgs
+        return ev
+
+    result = iterative_optimize(tps, evaluate, params.optimizer,
+                                callback=callback)
+    return VMCResult(result.state, result.lowest_state, result.energies,
+                     result.lowest_energy, result.records,
+                     sampler["configs"])

@@ -1,0 +1,88 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``peps_tpu_torch/csrc/*.cu`` have a plain C interface.
+``nvcc`` compiles them for Hopper (``sm_90a``) into one shared library, on
+first use, under ``build/peps_tpu_torch/`` at the root of the checkout, and
+``ctypes`` loads it. The library's file name carries a hash of the sources,
+so an edited source is rebuilt and a stale library is never loaded.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "peps_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class BuiltLibrary(NamedTuple):
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float   # compile time; 0.0 when an up-to-date library was found
+    log: str         # nvcc / ptxas output of the build ("" when cached)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels of peps_tpu_torch "
+                       "are built on first use and need the CUDA toolkit")
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    ptr = ctypes.c_void_p
+    for name in ("col_transfer_f32", "col_transfer_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
+    lib.peps_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.peps_cuda_error_string.restype = ctypes.c_char_p
+
+
+@functools.cache
+def cuda_library() -> BuiltLibrary:
+    """Compile (if needed) and load the kernel library. Raises when nvcc is
+    missing or the build fails; never falls back."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha1()
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    path = BUILD_DIR / f"libpeps_kernels_{digest.hexdigest()[:12]}.so"
+    seconds, log = 0.0, ""
+    if not path.exists():
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    _declare(lib)
+    return BuiltLibrary(lib, path, seconds, log)
+
+
+def check(code: int) -> None:
+    """Raise on a non-zero cudaError_t returned by a kernel's C entry."""
+    if code != 0:
+        msg = cuda_library().lib.peps_cuda_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel launch failed: {msg} ({code})")

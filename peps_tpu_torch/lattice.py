@@ -1,0 +1,42 @@
+"""Lattice conventions (port of ``peps_tpu/lattice.py``).
+
+TPS site tensor A[p, u, l, d, r], the full TPS one tensor
+[Ly, Lx, d, D, D, D, D]. Open-boundary edge bonds are embedded at index 0 of
+a D-dimensional axis; the other slots are exact zeros (:func:`boundary_mask`).
+"""
+from __future__ import annotations
+
+import enum
+
+import numpy as np
+import torch
+
+
+class BoundaryCondition(enum.Enum):
+    OPEN = "open"
+    PERIODIC = "periodic"
+
+
+def boundary_mask(ly: int, lx: int, d: int, D: int,
+                  bc: BoundaryCondition = BoundaryCondition.OPEN) -> np.ndarray:
+    """0/1 mask [Ly, Lx, d, D, D, D, D] zeroing padded boundary slots."""
+    mask = np.ones((ly, lx, d, D, D, D, D), dtype=np.float32)
+    if bc == BoundaryCondition.PERIODIC:
+        return mask
+    edge = np.zeros(D, dtype=np.float32)
+    edge[0] = 1.0
+    mask[0] *= edge[None, None, :, None, None, None]
+    mask[:, 0] *= edge[None, None, None, :, None, None]
+    mask[ly - 1] *= edge[None, None, None, None, :, None]
+    mask[:, lx - 1] *= edge[None, None, None, None, None, :]
+    return mask
+
+
+def transpose_tps(tps: torch.Tensor) -> torch.Tensor:
+    """Reflect a TPS [.., Ly, Lx, p, u, l, d, r] across the diagonal:
+    [.., Lx, Ly, p, l, u, r, d], so vertical bonds become horizontal.
+    Returns a view."""
+    nd = tps.ndim
+    perm = list(range(nd - 7)) + [nd - 6, nd - 7, nd - 5, nd - 3, nd - 4,
+                                  nd - 1, nd - 2]
+    return tps.permute(perm)

@@ -1,0 +1,158 @@
+"""Monte Carlo sweep with environment reuse (port of
+``peps_tpu/montecarlo/sweep.py``).
+
+Same schedule as the reference: bottom stack from the pre-sweep network (or
+passed in), top boundary grown row by row with the updated rows, per-row
+right BTens and right candidate blocks, and a sequential left-to-right bond
+scan whose accepted candidate slice is the next left env. A sweep is the
+horizontal pass then the vertical pass on the transposed lattice. The chain
+axis is a leading batch dimension; rows and bonds are Python loops.
+
+Random numbers: one uniform per bond per frame, ``u_h [nc, Ly, Lx-1]`` and
+``u_v [nc, Lx, Ly-1]``, either passed in (the parity tests replay the
+reference's key splits) or drawn from a ``torch.Generator`` in one call per
+sweep. Only the "exchange" rule is ported; Suwa-Todo comes with ROADMAP
+queue 1, item 4.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from peps_tpu_torch.contraction import bmps
+from peps_tpu_torch.kernels.col_transfer import col_transfer, \
+    col_transfer_right
+from peps_tpu_torch.linalg import TruncParams
+from peps_tpu_torch.tps import project
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateRule:
+    """The bond update of a sweep; only "exchange" is ported."""
+    mode: str = "exchange"
+
+    def __post_init__(self):
+        if self.mode != "exchange":
+            raise NotImplementedError(
+                f"update rule {self.mode!r}: ROADMAP queue 1, item 4")
+
+
+class SweepStats(NamedTuple):
+    accepted: torch.Tensor
+    trials: torch.Tensor
+
+
+def _project_row(tps_row: torch.Tensor, cfg_row: torch.Tensor) -> torch.Tensor:
+    """tps_row [Lx, d, u, l, d, r], cfg_row [..., Lx] -> [..., Lx, u, l, d, r]."""
+    xs = torch.arange(tps_row.shape[0], device=tps_row.device)
+    return tps_row[xs, cfg_row.long()]
+
+
+def _right_btens(top, bot, row):
+    """Right BTens [..., Lx+1, chi, D, chi] of a row sandwich (normalized)."""
+    lx, chi, dv = top.shape[-4], top.shape[-3], row.shape[-3]
+    batch = torch.broadcast_shapes(top.shape[:-4], row.shape[:-5])
+    env = bmps._unit_env(chi, dv, row.dtype, row.device, batch)
+    rs = [env]
+    for x in range(lx - 1, -1, -1):
+        env, _ = bmps._normalize(col_transfer_right(
+            env, top[..., x, :, :, :], row[..., x, :, :, :, :],
+            bot[..., x, :, :, :]), 3)
+        rs.append(env)
+    return torch.stack(rs[::-1], dim=-4)
+
+
+def _right_blocks(rights, top, bot, cands):
+    """rblk[..., x, j, a, l, c] = right transfer of rights[x+2] through
+    top[x+1], cands[x+1, j], bot[x+1]; batched over (bond, candidate)."""
+    return col_transfer_right(rights[..., 2:, None, :, :, :],
+                              top[..., 1:, None, :, :, :], cands[1:],
+                              bot[..., 1:, None, :, :, :])
+
+
+def draw_uniforms(generator: torch.Generator, nc: int, ly: int, lx: int,
+                  dtype, device):
+    """One sweep's uniforms (u_h [nc, Ly, Lx-1], u_v [nc, Lx, Ly-1]) from
+    one generator call."""
+    nh, nv = ly * (lx - 1), lx * (ly - 1)
+    u = torch.rand(nc, nh + nv, generator=generator, dtype=dtype,
+                   device=device)
+    return u[:, :nh].reshape(nc, ly, lx - 1), u[:, nh:].reshape(nc, lx, ly - 1)
+
+
+def _sweep_rows(tps, config, uniforms, chi, trunc: TruncParams,
+                bots=None):
+    """One pass over all horizontal bonds of every chain.
+
+    tps [Ly, Lx, d, ...]; config [nc, Ly, Lx]; uniforms [nc, Ly, Lx-1];
+    bots: optional bottom stack [nc, Ly+1, Lx, chi, D, chi] of the pre-sweep
+    network. Returns (config', SweepStats) with device-side counts."""
+    ly, lx = tps.shape[0], tps.shape[1]
+    nc = config.shape[0]
+    dtype, dev = tps.dtype, tps.device
+    rdt = tps.real.dtype if tps.is_complex() else dtype
+    tiny = torch.finfo(rdt).tiny
+    config = config.long()
+    if bots is None:
+        ftops, _ = bmps.all_top_envs(bmps.flip_vertical(project(tps, config)),
+                                     chi, trunc)
+        bots = torch.flip(ftops, [-5])
+    chains = torch.arange(nc, device=dev)
+    top = bmps.init_boundary(lx, chi, tps.shape[3], dtype, dev, (nc,))
+    l0 = bmps._unit_env(chi, tps.shape[3], dtype, dev, (nc,))
+    acc = torch.zeros((), dtype=torch.int64, device=dev)
+    tri = torch.zeros((), dtype=torch.int64, device=dev)
+    new_rows = []
+    for y in range(ly):
+        bot = bots[:, y + 1]
+        cfg_row = config[:, y]
+        rights = _right_btens(top, bot, _project_row(tps[y], cfg_row))
+        rblks = _right_blocks(rights, top, bot, tps[y])
+        lenv, c_cur = l0, cfg_row[:, 0]
+        heads = []
+        for x in range(lx - 1):
+            # left chain over all d first-site candidates (K1, batch [nc, d])
+            h1 = col_transfer(lenv[:, None], top[:, x, None], tps[y, x],
+                              bot[:, x, None])
+            table = torch.einsum("nkABC,njABC->nkj", h1, rblks[:, x])
+            c2 = cfg_row[:, x + 1]
+            psi_cur = table[chains, c_cur, c2]
+            psi_new = table[chains, c2, c_cur]
+            ratio2 = psi_new.abs() ** 2 / torch.clamp(psi_cur.abs() ** 2,
+                                                      min=tiny)
+            differ = c_cur != c2
+            accept = differ & (uniforms[:, y, x] < ratio2)
+            new1 = torch.where(accept, c2, c_cur)
+            new2 = torch.where(accept, c_cur, c2)
+            acc = acc + accept.sum()
+            tri = tri + differ.sum()
+            lenv, _ = bmps._normalize(h1[chains, new1], 3)
+            heads.append(new1)
+            c_cur = new2
+        new_row = torch.stack(heads + [c_cur], dim=1)
+        new_rows.append(new_row)
+        top = bmps.absorb_row(top, _project_row(tps[y], new_row), chi,
+                              trunc).bmps
+    return torch.stack(new_rows, dim=1), SweepStats(acc, tri)
+
+
+def mc_sweep(tps, tps_t, config, chi, trunc: TruncParams, uniforms=None,
+             generator: torch.Generator | None = None, bots=None):
+    """One full exchange sweep of every chain: horizontal bonds, then
+    vertical bonds on the transposed lattice (tps_t = transpose_tps(tps)).
+
+    config [nc, Ly, Lx]; uniforms (u_h, u_v) or None to draw them from
+    ``generator``; bots: optional bottom stack of the pre-sweep network.
+    Returns (config' [nc, Ly, Lx] int64, SweepStats)."""
+    ly, lx = config.shape[-2:]
+    if uniforms is None:
+        rdt = tps.real.dtype if tps.is_complex() else tps.dtype
+        uniforms = draw_uniforms(generator, config.shape[0], ly, lx, rdt,
+                                 tps.device)
+    u_h, u_v = uniforms
+    config, st_h = _sweep_rows(tps, config, u_h, chi, trunc, bots)
+    cfg_t, st_v = _sweep_rows(tps_t, config.transpose(1, 2), u_v, chi, trunc)
+    return cfg_t.transpose(1, 2).contiguous(), SweepStats(
+        st_h.accepted + st_v.accepted, st_h.trials + st_v.trials)

@@ -1,0 +1,134 @@
+"""The port as a package: it runs without JAX, ships its kernel sources,
+and its kernel wrappers never fall back to the plain versions on a CUDA
+tensor."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import peps_tpu_torch
+from peps_tpu_torch.kernels import centered_o as k2
+from peps_tpu_torch.kernels import col_transfer as k1
+
+REPO = Path(__file__).resolve().parent.parent
+
+NO_JAX_TRAIN_STEP = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+import numpy as np
+import torch
+from peps_tpu_torch.algorithm.mc_evaluator import MCParams
+from peps_tpu_torch.algorithm.vmc_optimize import VMCParams, vmc_optimize
+from peps_tpu_torch.linalg import TruncParams
+from peps_tpu_torch.models import spin
+from peps_tpu_torch.optimizer.cg import CGParams
+from peps_tpu_torch.optimizer.optimizer import OptimizerParams, SRParams
+from peps_tpu_torch.peps import (SimpleUpdateParams, product_peps,
+                                 simple_update, to_tps)
+
+m = spin.heisenberg()
+p0 = product_peps(2, 2, 2, np.array([[0, 1], [1, 0]]), 2,
+                  dtype=torch.float64)
+su = simple_update(p0, m.h_h, m.h_v,
+                   SimpleUpdateParams(5, 0.1, TruncParams(2, 1, 1e-10)))
+tps = to_tps(su.peps)
+params = VMCParams(4, TruncParams(4, 1, 1e-8, scheme="sketch"),
+                   MCParams(num_samples=1, num_warmup_sweeps=1, nchains=4),
+                   OptimizerParams(1, SRParams(CGParams(10, 1e-6)), lr=0.05),
+                   occupancy=((0, 2), (1, 2)))
+res = vmc_optimize(tps, m, params, torch.Generator().manual_seed(0))
+assert np.isfinite(res.energies[0]), res.energies
+leaked = sorted(k for k in sys.modules
+                if k == "peps_tpu" or k.startswith("peps_tpu.")
+                or (k.startswith("jax") and sys.modules[k] is not None))
+assert not leaked, leaked
+print("OK", res.energies[0])
+"""
+
+
+def test_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", NO_JAX_TRAIN_STEP],
+                          capture_output=True, text=True, env=env, cwd=REPO,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
+
+
+def test_package_imports_no_jax_module():
+    for path in (REPO / "peps_tpu_torch").rglob("*.py"):
+        text = path.read_text()
+        assert "import jax" not in text and "from jax" not in text, path
+        assert "from peps_tpu." not in text and "import peps_tpu\n" not in text, path
+
+
+def test_kernel_sources_ship_in_csrc():
+    src = REPO / "peps_tpu_torch" / "csrc" / "col_transfer.cu"
+    text = src.read_text()
+    assert 'extern "C"' in text and "col_transfer_f32" in text \
+        and "col_transfer_f64" in text
+
+
+def test_tf32_is_off():
+    assert peps_tpu_torch is not None
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+class _CudaLike(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: drives the wrappers down
+    their launch path on a machine without CUDA."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _cuda_like(*shape, dtype=torch.float32):
+    return torch.Tensor._make_subclass(_CudaLike, torch.zeros(*shape,
+                                                              dtype=dtype))
+
+
+def _no_plain(*args, **kwargs):
+    raise AssertionError("a CUDA tensor reached the plain version")
+
+
+def test_col_transfer_launches_or_raises_on_cuda(monkeypatch):
+    monkeypatch.setattr(k1, "col_transfer_plain", _no_plain)
+    env = _cuda_like(4, 2, 4)
+    top = _cuda_like(4, 2, 4)
+    site = _cuda_like(2, 2, 2, 2)
+    before = k1.col_transfer.launches
+    with pytest.raises((RuntimeError, OSError)):
+        k1.col_transfer(env, top, site, _cuda_like(4, 2, 4))
+    assert k1.col_transfer.launches == before
+    with pytest.raises(TypeError, match="complex"):
+        k1.col_transfer(_cuda_like(4, 2, 4, dtype=torch.complex64),
+                        _cuda_like(4, 2, 4, dtype=torch.complex64),
+                        _cuda_like(2, 2, 2, 2, dtype=torch.complex64),
+                        _cuda_like(4, 2, 4, dtype=torch.complex64))
+
+
+def test_centered_o_launches_or_raises_on_cuda(monkeypatch):
+    monkeypatch.setattr(k2, "centered_o_plain", _no_plain)
+    before = k2.centered_o.launches
+    holes = _cuda_like(3, 4, 16)
+    psi = _cuda_like(3, 4)
+    cfg = _cuda_like(3, 4)
+    with pytest.raises((ImportError, RuntimeError)):
+        k2.centered_o(holes, psi, cfg, 2)
+    assert k2.centered_o.launches == before
+
+
+def test_plain_versions_on_cpu_count_no_launch():
+    before1, before2 = k1.col_transfer.launches, k2.centered_o.launches
+    x = torch.ones(3, 2, 3, dtype=torch.float64)
+    k1.col_transfer(x, x, torch.ones(2, 2, 2, 2, dtype=torch.float64), x)
+    k2.centered_o(torch.ones(2, 1, 4, dtype=torch.float64),
+                  torch.ones(2, 1, dtype=torch.float64),
+                  torch.zeros(2, 1, dtype=torch.int64), 2)
+    assert (k1.col_transfer.launches, k2.centered_o.launches) == \
+        (before1, before2)
