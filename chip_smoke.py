@@ -7,7 +7,13 @@ Phases, one line each (failures exit non-zero before the last line):
      via nvcc) and K2 (Triton) built from the checkout's sources;
   2. every kernel against its plain PyTorch version at every main-path
      shape, float32 (tolerance 1e-5) and float64 (1e-12), errors as
-     max |kernel - plain| / max |plain|, with both times;
+     max |kernel - plain| / max |plain|, with both times; for K1 also the
+     time of one torch.einsum call computing the same transfer, the bound
+     (flops over the card's f32 or f64 peak derived from the SM count and
+     nvidia-smi's clocks.max.sm, or bytes over 3.35 TB/s), the share of the
+     bound reached, the launch plan taken, and the host microseconds per
+     call with the meta cache warm. A kernel slower than its plain version
+     is reported, not failed: only a wrong result fails;
   3. the main path through the user entry points: product_peps (Neel) ->
      simple_update -> to_tps -> vmc_optimize (SR by CG) on 8x8 Heisenberg,
      D=8, chi=32, sketch, 32 chains, f32, 3 iterations; energies finite
@@ -33,6 +39,8 @@ SU_STEPS = 40
 WARMUP_SWEEPS = 2
 SR_ITERS = 3
 TOL = {"float32": 1e-5, "float64": 1e-12}
+HBM_BPS = 3.35e12          # H100 SXM device memory rate (data sheet)
+EINSUM_1CALL = "...alc,...auA,...uldr,...cdC->...ArC"
 
 
 def fail(msg):
@@ -65,6 +73,41 @@ def max_err(out, ref):
     return err, err / max(ref.abs().max().item(), 1e-300)
 
 
+def peak_rates(device):
+    """The card's f32 and f64 peaks (flop/s) from its SM count and maximum
+    SM clock (nvidia-smi clocks.max.sm), two flops per fused multiply-add.
+    f32: 128 FP32 CUDA-core lanes per Hopper SM (TF32 is a lower precision,
+    not f32's rate). f64: 128 FMA per clock per SM on the DMMA tensor cores,
+    full IEEE f64; the 64 FP64 CUDA-core lanes (DFMA, what K1 runs on) give
+    half that, printed as fp64_simt_flops."""
+    import torch
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits", "-i",
+                          str(device.index or 0)], capture_output=True,
+                         text=True, timeout=60)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return {"sms": sms, "clock_max_sm_MHz": mhz,
+            "fp32_flops": sms * 128 * 2 * mhz * 1e6,
+            "fp64_flops": sms * 128 * 2 * mhz * 1e6,
+            "fp64_simt_flops": sms * 64 * 2 * mhz * 1e6, "hbm_Bps": HBM_BPS}
+
+
+def k1_work(env, top, site, bot, out):
+    """(flops, bytes) of one K1 call on left-form operands: the three
+    contractions per item, each input read once, the output written once."""
+    na, nl, nc = env.shape[-3:]
+    nu, nA = top.shape[-2:]
+    nd, nr = site.shape[-2:]
+    nC = bot.shape[-1]
+    items = math.prod(out.shape[:-3])
+    flops = 2 * items * (na * nl * nc * nu * nA + nA * nc * nl * nu * nd * nr
+                         + nA * nr * nc * nd * nC)
+    nbytes = sum(t.numel() for t in (env, top, site, bot, out)) \
+        * env.element_size()
+    return flops, nbytes
+
+
 def k1_cases(dtype, device, gen):
     """K1 operands at the shapes and broadcast patterns the main path gives
     it (8x8, D=8, chi=32, 32 chains, d=2): (name, form, env, top, site, bot)."""
@@ -95,40 +138,84 @@ def k1_cases(dtype, device, gen):
     ]
 
 
+def k1_host_us(k1, case, reps=400):
+    """Host microseconds per K1 call (wrapper + launch, meta cache warm),
+    host clock over reps calls with no synchronisation in between."""
+    import torch
+    _, form, env, top, site, bot = case
+    call = k1.col_transfer_right if form == "right" else k1.col_transfer
+    call(env, top, site, bot)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call(env, top, site, bot)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / reps * 1e6
+
+
 def phase_kernels(device):
-    """Phase 2: K1 and K2 vs their plain versions. Returns per-kernel
-    records (f32 numbers at the largest main-path shape)."""
+    """Phase 2: K1 and K2 vs their plain versions (and K1 vs one einsum
+    call and its bound). Returns per-kernel records (f32 numbers at the
+    largest main-path shape)."""
     import torch
     from peps_tpu_torch.kernels import centered_o as k2
     from peps_tpu_torch.kernels import col_transfer as k1
 
+    peak = peak_rates(device)
+    log("peak", **peak)
     gen = torch.Generator(device=device).manual_seed(1234)
     rec = {"col_transfer": {"max_abs_err": 0.0}, "centered_o": {"max_abs_err": 0.0}}
     for dtype in (torch.float32, torch.float64):
         tol = TOL[str(dtype).split(".")[1]]
-        for name, form, env, top, site, bot in k1_cases(dtype, device, gen):
+        flop_rate = peak["fp32_flops" if dtype == torch.float32
+                         else "fp64_flops"]
+        for case in k1_cases(dtype, device, gen):
+            name, form, env, top, site, bot = case
             if form == "right":
                 kern = lambda: k1.col_transfer_right(env, top, site, bot)
                 plain = lambda: k1.col_transfer_right(
                     env, top, site, bot, transfer=k1.col_transfer_plain)
+                views = (env, top.transpose(-3, -1), site.transpose(-3, -1),
+                         bot.transpose(-3, -1))
             else:
                 kern = lambda: k1.col_transfer(env, top, site, bot)
                 plain = lambda: k1.col_transfer_plain(env, top, site, bot)
+                views = (env, top, site, bot)
+            one_call = lambda: torch.einsum(EINSUM_1CALL, *views)
             out, ref = kern(), plain()
             torch.cuda.synchronize()
             abs_err, rel = max_err(out, ref)
-            ms, plain_ms = time_ms(kern, 10), time_ms(plain, 10)
+            # in turns: plain, kernel, einsum, einsum, kernel, plain
+            t = {k: [] for k in ("plain", "kern", "one")}
+            for k in ("plain", "kern", "one", "one", "kern", "plain"):
+                fn = {"plain": plain, "kern": kern, "one": one_call}[k]
+                t[k].append(time_ms(fn, 10))
+            ms, plain_ms, one_ms = (sum(t[k]) / 2
+                                    for k in ("kern", "plain", "one"))
+            flops, nbytes = k1_work(*views, out)
+            bound_ms = max(flops / flop_rate, nbytes / HBM_BPS) * 1e3
+            bound_by = "operations" if flops / flop_rate >= nbytes / HBM_BPS \
+                else "bytes"
             batch = tuple(out.shape[:-3])
             log("kernels", kernel="col_transfer", case=name, form=form,
                 dtype=str(dtype), batch=batch, items=math.prod(batch),
-                rel_err=rel, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+                rel_err=rel, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                einsum_1call_ms=one_ms, flops=flops, bytes=nbytes,
+                bound_ms=bound_ms, bound_by=bound_by,
+                pct_of_bound=100 * bound_ms / ms,
+                plan=k1.col_transfer_plan(*views))
             if not (rel <= tol):
                 fail(f"col_transfer {name} {dtype}: rel err {rel} > {tol}")
             if dtype == torch.float32:
                 r = rec["col_transfer"]
                 r["max_abs_err"] = max(r["max_abs_err"], abs_err)
                 if name == "nn_traces":
-                    r.update(ms=ms, plain_ms=plain_ms)
+                    r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=one_ms)
+            if dtype == torch.float32 and name in ("bond_step", "nn_traces"):
+                log("k1_host", case=name, dtype=str(dtype),
+                    host_us_per_call=k1_host_us(k1, case))
         ns, sites, k = NCHAINS, LY * LX, D ** 4
         holes = torch.randn(ns, sites, k, generator=gen, device=device,
                             dtype=dtype)
@@ -141,14 +228,20 @@ def phase_kernels(device):
         abs_err, rel = max_err(out, ref)
         ms, plain_ms = time_ms(kern, 20), time_ms(plain, 20)
         gbs = (2 * holes.numel() + out.numel()) * holes.element_size() / ms / 1e6
+        # bound: each input read once, the buffer written once
+        nbytes = sum(x.numel() * x.element_size()
+                     for x in (holes, psi, cfg, out))
+        bound_ms = nbytes / HBM_BPS * 1e3
         log("kernels", kernel="centered_o", case="sr_buffer", dtype=str(dtype),
             shape=tuple(out.shape), rel_err=rel, max_abs_err=abs_err, ms=ms,
-            plain_ms=plain_ms, effective_GBps=gbs)
+            plain_ms=plain_ms, effective_GBps=gbs, bytes=nbytes,
+            bound_ms=bound_ms, pct_of_bound=100 * bound_ms / ms)
         if not (rel <= tol):
             fail(f"centered_o {dtype}: rel err {rel} > {tol}")
         if dtype == torch.float32:
             rec["centered_o"].update(max_abs_err=abs_err, ms=ms,
-                                     plain_ms=plain_ms)
+                                     plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_by="bytes", library_ms=None)
     return rec
 
 

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from peps_tpu_torch.contraction import bmps
+from peps_tpu_torch.device import resolve_device
 from peps_tpu_torch.lattice import transpose_tps
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.tps import project
@@ -37,6 +38,7 @@ class ModelTensors(NamedTuple):
 
     @classmethod
     def from_model(cls, model, dtype, device=None):
+        device = resolve_device(device)
         def conv(name):
             m = getattr(model, name, None)
             return None if m is None else torch.as_tensor(

@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from peps_tpu_torch.device import resolve_device
 from peps_tpu_torch.kernels.col_transfer import col_transfer, \
     col_transfer_right
 from peps_tpu_torch.linalg import TruncParams, lq, truncated_svd
@@ -49,7 +50,8 @@ def _unit_env(chi: int, dv: int, dtype, device, batch=()) -> torch.Tensor:
 def init_boundary(lx: int, chi: int, d_bond: int, dtype, device=None,
                   batch=()) -> torch.Tensor:
     """Trivial boundary MPS [*batch, Lx, chi, D, chi] (index-0 product)."""
-    return _unit_env(chi, d_bond, dtype, device, tuple(batch) + (lx,))
+    return _unit_env(chi, d_bond, dtype, resolve_device(device),
+                     tuple(batch) + (lx,))
 
 
 def flip_vertical(tn: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
+    lib.col_transfer_plan.argtypes = [ptr, ctypes.c_int, ptr]
+    lib.col_transfer_plan.restype = ctypes.c_int
     lib.peps_cuda_error_string.argtypes = [ctypes.c_int]
     lib.peps_cuda_error_string.restype = ctypes.c_char_p
 

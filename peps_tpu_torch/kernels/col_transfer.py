@@ -12,7 +12,8 @@ copied.
 
 On a CPU tensor :func:`col_transfer` runs the plain version. On a CUDA
 tensor it launches the hand-written kernel (``csrc/col_transfer.cu``) or
-raises; there is no fallback.
+raises; there is no fallback. The launch meta (sizes and strides) is cached
+per operand signature (:func:`launch_meta`).
 """
 from __future__ import annotations
 
@@ -94,6 +95,29 @@ def _check_operands(env, top, site, bot):
             f"{tuple(bot.shape)}")
 
 
+_META_CACHE: dict = {}
+_META_CACHE_MAX = 4096
+
+
+def launch_meta(env, top, site, bot):
+    """(batch shape, ctypes meta array) of a kernel call, cached per
+    (shapes, strides, dtype, device) signature: a hit skips the checks, the
+    broadcast and the meta rebuild."""
+    key = tuple((o.shape, o.stride(), o.dtype, o.device)
+                for o in (env, top, site, bot))
+    hit = _META_CACHE.get(key)
+    if hit is not None:
+        return hit
+    _check_operands(env, top, site, bot)
+    batch = torch.broadcast_shapes(env.shape[:-3], top.shape[:-3],
+                                   site.shape[:-4], bot.shape[:-3])
+    meta = _meta(env, top, site, bot, batch)
+    if len(_META_CACHE) >= _META_CACHE_MAX:
+        _META_CACHE.clear()
+    hit = _META_CACHE[key] = (batch, (ctypes.c_int64 * len(meta))(*meta))
+    return hit
+
+
 def col_transfer(env, top, site, bot):
     """K1 wrapper. CPU tensors: plain version. CUDA tensors: the kernel."""
     if env.device.type == "cpu":
@@ -102,23 +126,36 @@ def col_transfer(env, top, site, bot):
         raise RuntimeError(f"col_transfer runs on cpu or cuda, not "
                            f"{env.device}")
     from peps_tpu_torch.kernels._build import check, cuda_library
-    _check_operands(env, top, site, bot)
+    batch, meta = launch_meta(env, top, site, bot)
     lib = cuda_library().lib
     fn = lib.col_transfer_f32 if env.dtype == torch.float32 \
         else lib.col_transfer_f64
-    batch = torch.broadcast_shapes(env.shape[:-3], top.shape[:-3],
-                                   site.shape[:-4], bot.shape[:-3])
-    nA, nr, nC = top.shape[-1], site.shape[-1], bot.shape[-1]
-    out = torch.empty(*batch, nA, nr, nC, dtype=env.dtype, device=env.device)
+    out = torch.empty(*batch, top.shape[-1], site.shape[-1], bot.shape[-1],
+                      dtype=env.dtype, device=env.device)
     if out.numel() == 0:
         return out
-    meta = (ctypes.c_int64 * 41)(*_meta(env, top, site, bot, batch))
     with torch.cuda.device(env.device):
-        stream = torch.cuda.current_stream(env.device).cuda_stream
         check(fn(env.data_ptr(), top.data_ptr(), site.data_ptr(),
-                 bot.data_ptr(), out.data_ptr(), meta, stream))
+                 bot.data_ptr(), out.data_ptr(), meta,
+                 torch.cuda.current_stream(env.device).cuda_stream))
     col_transfer.launches += 1
     return out
+
+
+def col_transfer_plan(env, top, site, bot):
+    """The launch plan the kernel takes for these operands (CUDA only; a
+    diagnostic read of the launch's own plan rule, nothing depends on it):
+    dict(mode "item" or "a_tile", a_tile, c_chunk, ctas, smem_bytes, sms,
+    item_threshold: the batch size from which one CTA takes a whole item)."""
+    from peps_tpu_torch.kernels._build import check, cuda_library
+    _, meta = launch_meta(env, top, site, bot)
+    plan = (ctypes.c_int64 * 7)()
+    with torch.cuda.device(env.device):
+        check(cuda_library().lib.col_transfer_plan(meta, env.element_size(),
+                                                   plan))
+    return {"mode": "item" if plan[0] == 0 else "a_tile", "a_tile": plan[1],
+            "c_chunk": plan[2], "ctas": plan[3], "smem_bytes": plan[4],
+            "sms": plan[5], "item_threshold": plan[6]}
 
 
 col_transfer.launches = 0

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from peps_tpu_torch.contraction import bmps
+from peps_tpu_torch.device import resolve_device
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.tps import project
 
@@ -22,6 +23,7 @@ def init_configs_occupancy(generator: torch.Generator, nchains: int, ly: int,
         raise ValueError(
             f"occupancy counts sum to {len(base)} but the lattice has "
             f"{ly * lx} sites ({ly}x{lx}); occupancy={occupancy!r}")
+    device = resolve_device(device)
     base = torch.tensor(base, dtype=torch.int64, device=device)
     keys = torch.rand(nchains, ly * lx, generator=generator, device=device)
     return base[torch.argsort(keys, dim=1)].reshape(nchains, ly, lx)
@@ -30,7 +32,7 @@ def init_configs_occupancy(generator: torch.Generator, nchains: int, ly: int,
 def init_configs_uniform(generator: torch.Generator, nchains: int, ly: int,
                          lx: int, d: int, device=None) -> torch.Tensor:
     return torch.randint(0, d, (nchains, ly, lx), generator=generator,
-                         device=device)
+                         device=resolve_device(device))
 
 
 def amplitudes(tps, configs, chi: int, trunc: TruncParams):

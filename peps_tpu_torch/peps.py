@@ -16,6 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from peps_tpu_torch.device import resolve_device
 from peps_tpu_torch.lattice import boundary_mask
 from peps_tpu_torch.linalg import (TruncParams, blq, expm_taylor,
                                    safe_inverse, truncated_svd)
@@ -46,7 +47,9 @@ class PEPS(NamedTuple):
 
 def product_peps(ly: int, lx: int, bond_dim: int, occupancy, phys_dim: int,
                  dtype=torch.float32, device=None) -> PEPS:
-    """Product-state PEPS |occupancy>; occupancy [Ly, Lx] of basis indices."""
+    """Product-state PEPS |occupancy>; occupancy [Ly, Lx] of basis indices.
+    device None: the current CUDA device (see :mod:`peps_tpu_torch.device`)."""
+    device = resolve_device(device)
     occ = torch.as_tensor(np.asarray(occupancy), device=device).long()
     g = torch.zeros((ly, lx, phys_dim) + (bond_dim,) * 4, dtype=dtype,
                     device=device)

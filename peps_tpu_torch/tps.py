@@ -14,6 +14,7 @@ import os
 import numpy as np
 import torch
 
+from peps_tpu_torch.device import resolve_device
 from peps_tpu_torch.lattice import BoundaryCondition
 
 
@@ -56,7 +57,7 @@ def load_tps(path: str, device=None):
         m = json.load(f)
     meta = TPSMeta(m["ly"], m["lx"], m["phys_dim"], m["bond_dim"],
                    BoundaryCondition(m["bc"]))
-    return torch.as_tensor(arr, device=device), meta
+    return torch.as_tensor(arr, device=resolve_device(device)), meta
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,9 @@ sketch, f32, SR by CG): iterations 1 and 2 are timed untraced, iterations
 3..iters are traced with torch.profiler. Prints JSON lines: seconds per
 train step (untraced and traced), device busy share (device-kernel time over
 the traced wall time; the profiler slows the host, so the untraced share is
-higher), and the device time by kernel name; writes the full table to
+higher), K1's device time per traced step (kernels whose name holds
+"col_transfer"; zero with --plain-k1), and the device time by kernel name;
+writes the full table to
 DIR/profile_<variant>.txt.
 --plain-k1 routes every column transfer through K1's plain PyTorch version
 instead of the CUDA kernel, for an end-to-end comparison in one call.
@@ -105,8 +107,10 @@ def main():
               if e.device_type == DeviceType.CUDA and self_dev(e) > 0]
     dev_us = sum(self_dev(e) for e in events)
     top = sorted(events, key=lambda e: -self_dev(e))[:15]
+    k1_us = sum(self_dev(e) for e in events if "col_transfer" in e.key)
     print(json.dumps({
         "variant": variant, "seconds_per_train_step_untraced": steps[:2],
+        "k1_device_ms_per_traced_step": k1_us / 1e3 / len(steps[2:]),
         "seconds_per_train_step_traced": steps[2:], "traced_wall_s": wall,
         "device_busy_s": dev_us / 1e6,
         "device_busy_share": dev_us / 1e6 / wall,

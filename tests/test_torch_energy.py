@@ -51,7 +51,7 @@ def test_local_energy_and_holes(scheme, ly, lx, jax_blocks):
         lambda c: j_energy.local_energy_and_holes(
             jnp.asarray(tps), c, jm, chi,
             JTrunc(chi, 1, 1e-12, scheme=scheme))))(jnp.asarray(cfgs))
-    mt = convert.model_tensors_from_numpy(jm, dtype=torch.float64)
+    mt = convert.model_tensors_from_numpy(jm, "cpu", torch.float64)
     out = energy.local_energy_and_holes(
         torch.as_tensor(tps), torch.as_tensor(cfgs), mt, chi,
         TruncParams(chi, 1, 1e-12, scheme=scheme))
@@ -63,7 +63,7 @@ def test_local_energy_and_holes(scheme, ly, lx, jax_blocks):
 def test_energy_terms_not_ported_raise():
     tps, cfgs = _setup(2, 3, 1, 1)
     model = j_spin.triangle_heisenberg()
-    mt = energy.ModelTensors.from_model(model, torch.float64)
+    mt = energy.ModelTensors.from_model(model, torch.float64, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         energy.local_energy_and_holes(torch.as_tensor(tps),
                                       torch.as_tensor(cfgs), mt, 4,
@@ -105,7 +105,8 @@ def test_centered_o_from_the_evaluator_path(jax_blocks):
     o = jax.jit(jax.vmap(lambda c: j_energy.local_energy_and_holes(
         jnp.asarray(tps), c, jm, chi, jt).o_tensor))(jnp.asarray(cfgs))
     ref = j_center_scale(o.reshape(nc, -1), nc)
-    mt = energy.ModelTensors.from_model(spin.heisenberg(), torch.float64)
+    mt = energy.ModelTensors.from_model(spin.heisenberg(), torch.float64,
+                                        "cpu")
     ct = torch.as_tensor(cfgs).long()
     _, rp, _, _ = energy._local_energy(
         torch.as_tensor(tps), ct, mt, chi,

@@ -31,7 +31,7 @@ from peps_tpu_torch.peps import (SimpleUpdateParams, product_peps,
 
 m = spin.heisenberg()
 p0 = product_peps(2, 2, 2, np.array([[0, 1], [1, 0]]), 2,
-                  dtype=torch.float64)
+                  dtype=torch.float64, device="cpu")
 su = simple_update(p0, m.h_h, m.h_v,
                    SimpleUpdateParams(5, 0.1, TruncParams(2, 1, 1e-10)))
 tps = to_tps(su.peps)

@@ -75,7 +75,7 @@ def test_project_transpose_and_io(tmp_path):
     rng = np.random.default_rng(1)
     a = rng.standard_normal((2, 3, 2) + (2,) * 4) * boundary_mask(2, 3, 2, 2)
     cfg = rng.integers(0, 2, (4, 2, 3))
-    ta = convert.tps_from_numpy(a)
+    ta = convert.tps_from_numpy(a, "cpu")
     out = tps.project(ta, torch.as_tensor(cfg))
     for n in range(4):
         assert rel(out[n], j_tps.project(jnp.asarray(a),
@@ -84,7 +84,7 @@ def test_project_transpose_and_io(tmp_path):
     # files interoperate both ways
     meta = j_tps.TPSMeta(2, 3, 2, 2)
     j_tps.save_tps(str(tmp_path / "j"), jnp.asarray(a), meta)
-    back, m2 = tps.load_tps(str(tmp_path / "j"))
+    back, m2 = tps.load_tps(str(tmp_path / "j"), device="cpu")
     assert rel(back, a) == 0.0 and m2.lx == 3
     tps.save_tps(str(tmp_path / "t"), ta, tps.TPSMeta(2, 3, 2, 2))
     back2, _ = j_tps.load_tps(str(tmp_path / "t"))
@@ -122,7 +122,7 @@ def test_simple_update_matches_reference(ly, lx, D):
         model.h_h, model.h_v,
         j_peps.SimpleUpdateParams(steps, 0.1, j_linalg.TruncParams(D, 1, 1e-12)))
     out = peps.simple_update(
-        convert.peps_from_numpy(g, lam_v, lam_h), model.h_h, model.h_v,
+        convert.peps_from_numpy(g, lam_v, lam_h, "cpu"), model.h_h, model.h_v,
         peps.SimpleUpdateParams(steps, 0.1, linalg.TruncParams(D, 1, 1e-12)))
     assert rel(out.peps.lam_v, ref.peps.lam_v) < 1e-8
     assert rel(out.peps.lam_h, ref.peps.lam_h) < 1e-8
@@ -135,7 +135,7 @@ def test_simple_update_matches_reference(ly, lx, D):
 
 def test_product_peps_and_to_tps():
     occ = np.indices((2, 3)).sum(0) % 2
-    p = peps.product_peps(2, 3, 3, occ, 2, dtype=torch.float64)
+    p = peps.product_peps(2, 3, 3, occ, 2, dtype=torch.float64, device="cpu")
     jp = j_peps.product_peps(2, 3, 3, jnp.asarray(occ), 2, dtype=jnp.float64)
     for a, b in zip(p, jp):
         assert rel(a, b) == 0.0

@@ -147,11 +147,11 @@ def test_engine_amplitudes_validity_and_normalization(jax_blocks):
 
 def test_init_configs_occupancy_counts():
     g = torch.Generator().manual_seed(1)
-    cfg = engine.init_configs_occupancy(g, 7, 3, 4, {0: 5, 1: 7})
+    cfg = engine.init_configs_occupancy(g, 7, 3, 4, {0: 5, 1: 7}, "cpu")
     assert cfg.shape == (7, 3, 4)
     assert ((cfg == 1).sum(dim=(1, 2)) == 7).all()
     with pytest.raises(ValueError):
-        engine.init_configs_occupancy(g, 2, 3, 4, {0: 5})
+        engine.init_configs_occupancy(g, 2, 3, 4, {0: 5}, "cpu")
 
 
 @pytest.mark.parametrize("shape", [(16,), (9, 4), (10, 3)])
