@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Phases, one line each (failures exit non-zero before the last line):
-  1. device and build: the card's name and power limit, then K1 (CUDA C++
-     via nvcc) and K2 (Triton) built from the checkout's sources;
+  1. device and build: the card's name and power limit, then K1 and K2
+     (CUDA C++, one nvcc per source, started together) built from the
+     checkout's sources;
   2. every kernel against its plain PyTorch version at every main-path
      shape, float32 (tolerance 1e-5) and float64 (1e-12), errors as
      max |kernel - plain| / max |plain|, with both times; for K1 also the
@@ -12,12 +13,20 @@ Phases, one line each (failures exit non-zero before the last line):
      (flops over the card's f32 or f64 peak derived from the SM count and
      nvidia-smi's clocks.max.sm, or bytes over 3.35 TB/s), the share of the
      bound reached, the launch plan taken, and the host microseconds per
-     call with the meta cache warm. A kernel slower than its plain version
-     is reported, not failed: only a wrong result fails;
+     call with the meta cache warm. K2 also at the stretch run's shape
+     (12x12, D=10, 256 samples; f32 and f64) and past 2^31 elements
+     (16x16, D=12, 256 samples; f32, checked on its first and last site),
+     with |psi| in [0.5, 1.5) and one psi = 0 row (k2_operands), each with
+     its bound (bytes over 3.35 TB/s), the launch plan, and the
+     time of a device-to-device copy_ that moves as many bytes (the
+     attainable memory rate; no PyTorch call computes K2, so library_ms
+     stays null). A kernel slower than its plain version is reported, not
+     failed: only a wrong result fails;
   3. the main path through the user entry points: product_peps (Neel) ->
      simple_update -> to_tps -> vmc_optimize (SR by CG) on 8x8 Heisenberg,
      D=8, chi=32, sketch, 32 chains, f32, 3 iterations; energies finite
-     with E/site in (-0.70, -0.40), every kernel launched;
+     with E/site in (-0.70, -0.40), every kernel launched; peak device
+     memory counted from the phase's start;
   4. the sketch-vs-svd accuracy gate: local energies of 16 sampled
      configurations under both compression schemes, max relative
      difference < 1e-2.
@@ -41,6 +50,15 @@ SR_ITERS = 3
 TOL = {"float32": 1e-5, "float64": 1e-12}
 HBM_BPS = 3.35e12          # H100 SXM device memory rate (data sheet)
 EINSUM_1CALL = "...alc,...auA,...uldr,...cdC->...ArC"
+# K2 cases: (name, Ns, sites, K, dtypes, check on the first and last site
+# only). The stretch run is examples/stretch_heisenberg.py's 12x12 D=10 with
+# 32 chains x 8 samples; 16x16 D=12 at 256 samples is past 2^31 elements.
+K2_CASES = (
+    ("main_path_8x8_D8", NCHAINS, LY * LX, D ** 4, ("float32", "float64"),
+     False),
+    ("stretch_12x12_D10", 256, 144, 10 ** 4, ("float32", "float64"), False),
+    ("big_16x16_D12", 256, 256, 12 ** 4, ("float32",), True),
+)
 
 
 def fail(msg):
@@ -155,9 +173,9 @@ def k1_host_us(k1, case, reps=400):
 
 
 def phase_kernels(device):
-    """Phase 2: K1 and K2 vs their plain versions (and K1 vs one einsum
-    call and its bound). Returns per-kernel records (f32 numbers at the
-    largest main-path shape)."""
+    """Phase 2: K1 and K2 vs their plain versions (K1 also vs one einsum
+    call, K2 vs a copy of as many bytes), with their bounds. Returns
+    per-kernel records (f32 numbers at the largest main-path shape)."""
     import torch
     from peps_tpu_torch.kernels import centered_o as k2
     from peps_tpu_torch.kernels import col_transfer as k1
@@ -216,32 +234,98 @@ def phase_kernels(device):
             if dtype == torch.float32 and name in ("bond_step", "nn_traces"):
                 log("k1_host", case=name, dtype=str(dtype),
                     host_us_per_call=k1_host_us(k1, case))
-        ns, sites, k = NCHAINS, LY * LX, D ** 4
-        holes = torch.randn(ns, sites, k, generator=gen, device=device,
-                            dtype=dtype)
-        psi = torch.randn(ns, sites, generator=gen, device=device, dtype=dtype)
-        cfg = torch.randint(0, PHYS, (ns, sites), generator=gen, device=device)
-        kern = lambda: k2.centered_o(holes, psi, cfg, PHYS)
-        plain = lambda: k2.centered_o_plain(holes, psi, cfg, PHYS)
-        out, ref = kern(), plain()
-        torch.cuda.synchronize()
-        abs_err, rel = max_err(out, ref)
-        ms, plain_ms = time_ms(kern, 20), time_ms(plain, 20)
-        gbs = (2 * holes.numel() + out.numel()) * holes.element_size() / ms / 1e6
-        # bound: each input read once, the buffer written once
-        nbytes = sum(x.numel() * x.element_size()
-                     for x in (holes, psi, cfg, out))
-        bound_ms = nbytes / HBM_BPS * 1e3
-        log("kernels", kernel="centered_o", case="sr_buffer", dtype=str(dtype),
-            shape=tuple(out.shape), rel_err=rel, max_abs_err=abs_err, ms=ms,
-            plain_ms=plain_ms, effective_GBps=gbs, bytes=nbytes,
-            bound_ms=bound_ms, pct_of_bound=100 * bound_ms / ms)
-        if not (rel <= tol):
-            fail(f"centered_o {dtype}: rel err {rel} > {tol}")
-        if dtype == torch.float32:
-            rec["centered_o"].update(max_abs_err=abs_err, ms=ms,
-                                     plain_ms=plain_ms, bound_ms=bound_ms,
-                                     bound_by="bytes", library_ms=None)
+    for case in K2_CASES:
+        for dt in case[4]:
+            dtype = getattr(torch, dt)
+            r = k2_case(k2, case, dtype, device, gen)
+            log("kernels", kernel="centered_o", **r)
+            if not (r["rel_err"] <= TOL[dt]):
+                fail(f"centered_o {case[0]} {dt}: rel err {r['rel_err']} "
+                     f"> {TOL[dt]}")
+            if case[0] == "main_path_8x8_D8" and dtype == torch.float32:
+                rec["centered_o"].update(
+                    max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by="bytes", library_ms=None)
+    return rec
+
+
+def k2_operands(ns, sites, k, dtype, device, gen):
+    """K2's holes [ns, sites, k], psi and cfg (d = PHYS) drawn from gen.
+    |psi| lies in [0.5, 1.5), so max |plain| stays within about 20x of a
+    typical output, and the tolerance, a share of max |plain|, holds every
+    value closely, the centering term of the unselected p included (a psi
+    near 0 would inflate max |plain| by orders of magnitude). Row 0 has
+    psi = 0 on purpose (safe(psi) = 1); NaN and subnormal psi are card-test
+    cases."""
+    import torch
+    holes = torch.randn(ns, sites, k, generator=gen, device=device,
+                        dtype=dtype)
+    mag = 0.5 + torch.rand(ns, sites, generator=gen, device=device,
+                           dtype=dtype)
+    sign = torch.randint(0, 2, (ns, sites), generator=gen, device=device)
+    psi = torch.where(sign == 1, mag, -mag)
+    psi[0] = 0
+    cfg = torch.randint(0, PHYS, (ns, sites), generator=gen, device=device)
+    return holes, psi, cfg
+
+
+def k2_case(k2, case, dtype, device, gen):
+    """One K2 case: the kernel of module k2 against its plain version (on
+    the first and last site only where the case says so), then the times of
+    the kernel and of a copy_ moving K2's bytes, in turns (kernel, copy,
+    copy, kernel), and of the plain version (after the copy's buffers are
+    freed: at 16x16 D=12 they would not fit beside the plain version's
+    temporaries). Returns the record; its plan is None for a module
+    without centered_o_plan (the Triton K2 of earlier commits)."""
+    import torch
+    name, ns, sites, k, _, subset = case
+    holes, psi, cfg = k2_operands(ns, sites, k, dtype, device, gen)
+    out = k2.centered_o(holes, psi, cfg, PHYS)
+    torch.cuda.synchronize()
+    if subset:
+        errs = []
+        for site in (0, sites - 1):
+            one = slice(site, site + 1)
+            ref = k2.centered_o_plain(holes[:, one], psi[:, one], cfg[:, one],
+                                      PHYS)
+            errs.append(max_err(out[:, site * PHYS * k:(site + 1) * PHYS * k],
+                                ref))
+        abs_err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    else:
+        abs_err, rel = max_err(out, k2.centered_o_plain(holes, psi, cfg, PHYS))
+    # bound: each input read once, the buffer written once
+    nbytes = sum(x.numel() * x.element_size() for x in (holes, psi, cfg, out))
+    shape = tuple(out.shape)
+    del out
+    reps = max(3, min(20, int(4e9 // nbytes)))
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    fns = {"kern": lambda: k2.centered_o(holes, psi, cfg, PHYS),
+           "copy": lambda: dst.copy_(src)}
+    t = {"kern": [], "copy": []}
+    for key in ("kern", "copy", "copy", "kern"):
+        t[key].append(time_ms(fns[key], reps))
+    del src, dst
+    torch.cuda.empty_cache()
+    plain_ms = time_ms(lambda: k2.centered_o_plain(holes, psi, cfg, PHYS),
+                       reps)
+    ms, copy_ms = sum(t["kern"]) / 2, sum(t["copy"]) / 2
+    bound_ms = nbytes / HBM_BPS * 1e3
+    plan = None
+    if hasattr(k2, "centered_o_plan"):
+        plan = k2.centered_o_plan(ns, sites, k, PHYS, dtype)
+    rec = {"case": name, "dtype": str(dtype), "shape": shape,
+           "elements": shape[0] * shape[1],
+           "site_subset_check": subset, "rel_err": rel,
+           "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+           "copy_same_bytes_ms": copy_ms, "bytes": nbytes,
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "pct_of_bound": 100 * bound_ms / ms,
+           "copy_pct_of_bound": 100 * bound_ms / copy_ms,
+           "plan": plan}
+    del holes, psi, cfg
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -276,6 +360,7 @@ def phase_main_path(device):
     col_transfer.launches = 0
     centered_o.launches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     occ = np.indices((LY, LX)).sum(0) % 2
     peps0 = product_peps(LY, LX, D, occ, PHYS, dtype=torch.float32,
@@ -355,7 +440,6 @@ def main():
     try:
         import peps_tpu_torch  # noqa: F401
         from peps_tpu_torch.kernels._build import cuda_library
-        from peps_tpu_torch.kernels.centered_o import centered_o
     except ImportError as exc:
         fail(f"peps_tpu_torch is not importable here: {exc}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -369,19 +453,10 @@ def main():
 
     t0 = time.perf_counter()
     built = cuda_library()
-    t1 = time.perf_counter()
-    # Triton compiles K2 at its first launch: launch it once per dtype at
-    # the main path's specialization (Ns = 32, sizes divisible by 16)
-    for dtype in (torch.float32, torch.float64):
-        centered_o(torch.zeros(NCHAINS, 16, 16, dtype=dtype, device=device),
-                   torch.ones(NCHAINS, 16, dtype=dtype, device=device),
-                   torch.zeros(NCHAINS, 16, dtype=torch.int64, device=device),
-                   PHYS)
-    torch.cuda.synchronize()
-    log("build", device=name, k1_nvcc_s=built.seconds, k1_load_s=t1 - t0,
-        k1_library=built.path.name,
-        ptxas=[ln for ln in built.log.splitlines() if "ptxas info" in ln],
-        k2_triton_compile_s=time.perf_counter() - t1)
+    log("build", device=name, nvcc_s=built.seconds,
+        build_and_load_s=time.perf_counter() - t0, library=built.path.name,
+        ptxas=[ln for ln in built.log.splitlines()
+               if "ptxas info" in ln or "spill" in ln])
 
     kern = phase_kernels(device)
     res, launches = phase_main_path(device)
@@ -392,8 +467,8 @@ def main():
          "source": "peps_tpu_torch/csrc/col_transfer.cu",
          "replaces": "peps_tpu/contraction/bmps.py:250",
          "launches": launches["col_transfer"], **kern["col_transfer"]},
-        {"name": "centered_o", "route": "triton",
-         "source": "peps_tpu_torch/kernels/centered_o.py",
+        {"name": "centered_o", "route": "cuda",
+         "source": "peps_tpu_torch/csrc/centered_o.cu",
          "replaces": "peps_tpu/algorithm/mc_evaluator.py:316",
          "launches": launches["centered_o"], **kern["centered_o"]},
     ]}

@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under ``peps_tpu_torch/csrc/*.cu`` have a plain C interface.
-``nvcc`` compiles them for Hopper (``sm_90a``) into one shared library, on
-first use, under ``build/peps_tpu_torch/`` at the root of the checkout, and
-``ctypes`` loads it. The library's file name carries a hash of the sources,
-so an edited source is rebuilt and a stale library is never loaded.
+``nvcc`` compiles them for Hopper (``sm_90a``), one process per source, all
+started together, and links them into one shared library, on first use,
+under ``build/peps_tpu_torch/`` at the root of the checkout; ``ctypes``
+loads it. The library's file name carries a hash of the sources, so an
+edited source is rebuilt and a stale library is never loaded.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "peps_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class BuiltLibrary(NamedTuple):
@@ -50,6 +51,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
     lib.col_transfer_plan.argtypes = [ptr, ctypes.c_int, ptr]
     lib.col_transfer_plan.restype = ctypes.c_int
+    for name in ("centered_o_f32", "centered_o_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
     lib.peps_cuda_error_string.argtypes = [ctypes.c_int]
     lib.peps_cuda_error_string.restype = ctypes.c_char_p
 
@@ -69,14 +74,29 @@ def cuda_library() -> BuiltLibrary:
     if not path.exists():
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{digest.hexdigest()[:12]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "".join(outs)
+        failed = [src.name for src, proc in zip(sources, procs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        seconds = time.perf_counter() - t0
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, path)
     lib = ctypes.CDLL(str(path))
     _declare(lib)

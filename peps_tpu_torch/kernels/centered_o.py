@@ -9,22 +9,27 @@ This fuses ``peps_tpu/algorithm/energy.py:_row_pass``'s O build
 (mc_evaluator.py:265) and ``mc_evaluator._center_scale`` (:316-320): the
 un-centered [Ns, P] O buffer is never written.
 
-What bounds it on the H100: memory. At the main-path shape (Ns = 32,
-P = 8*8*2*8^4 = 524288, f32) it reads the holes (33.5 MB) twice and writes
-the 67 MB result once, against ~3 FLOP per element. Design: one Triton
-program per column tile; a first loop over sample tiles sums the column
-means, a second loop writes the centered values. The second read of the
-holes hits L2 for the tile just summed. The one-hot scatter is a compare on
-the loaded config, so a zero of the O buffer costs no read.
+What bounds it on the H100: memory (a few flops per output). The kernel
+(``csrc/centered_o.cu``, CUDA C++ for sm_90a; the source note has the
+design) gives one CTA a site and a 128-byte chunk of its K columns for all
+d values of p, reads each holes value once into registers, and writes the
+d outputs from there. :func:`centered_o_plan` is its launch plan, in
+Python so that the CPU tests can check it.
 
 On a CPU tensor :func:`centered_o` runs the plain version; on a CUDA tensor
-it launches the Triton kernel or raises.
+it launches the kernel or raises.
 """
 from __future__ import annotations
 
-import functools
+import ctypes
 
 import torch
+
+THREADS = 256
+LANES_PER_ROW = 8                      # 8 lanes x 16 bytes: a 128-byte line
+ROWS_PER_PASS = THREADS // LANES_PER_ROW
+MAX_ROWS_PER_THREAD = 8                # a row block holds 256 rows
+MAX_D = 4                              # spin-1/2 2, t-J 3, Hubbard 4
 
 
 def centered_o_plain(holes, psi, cfg, d):
@@ -39,52 +44,64 @@ def centered_o_plain(holes, psi, cfg, d):
         torch.tensor(float(ns), dtype=holes.dtype, device=holes.device))
 
 
-@functools.cache
-def _kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def centered_o_kernel(holes_ptr, psi_ptr, cfg_ptr, out_ptr, NS, S, K, P,
-                          D_PHYS: tl.constexpr, BLOCK_S: tl.constexpr,
-                          BLOCK_C: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = pid * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < P
-        site = cols // (D_PHYS * K)
-        p = (cols // K) % D_PHYS
-        k = cols % K
-        rows0 = tl.arange(0, BLOCK_S)
-        acc = tl.zeros((BLOCK_C,), dtype=holes_ptr.dtype.element_ty)
-        ns_f = acc + NS          # Ns in the working dtype (f64 stays f64)
-        for s0 in range(0, NS, BLOCK_S):
-            rows = s0 + rows0
-            m = (rows[:, None] < NS) & cmask[None, :]
-            sidx = rows[:, None] * S + site[None, :]
-            h = tl.load(holes_ptr + sidx * K + k[None, :], mask=m, other=0.0)
-            ps = tl.load(psi_ptr + sidx, mask=m, other=1.0)
-            c = tl.load(cfg_ptr + sidx, mask=m, other=-1)
-            ps = tl.where(ps == 0.0, 1.0, ps)
-            o = (h / ps) * (c == p[None, :]).to(h.dtype)
-            acc += tl.sum(o, axis=0)
-        mean = acc / ns_f
-        root = tl.sqrt(ns_f)
-        for s0 in range(0, NS, BLOCK_S):
-            rows = s0 + rows0
-            m = (rows[:, None] < NS) & cmask[None, :]
-            sidx = rows[:, None] * S + site[None, :]
-            h = tl.load(holes_ptr + sidx * K + k[None, :], mask=m, other=0.0)
-            ps = tl.load(psi_ptr + sidx, mask=m, other=1.0)
-            c = tl.load(cfg_ptr + sidx, mask=m, other=-1)
-            ps = tl.where(ps == 0.0, 1.0, ps)
-            o = (h / ps) * (c == p[None, :]).to(h.dtype)
-            tl.store(out_ptr + rows[:, None] * P + cols[None, :],
-                     (o - mean[None, :]) / root[None, :], mask=m)
-
-    return triton, centered_o_kernel
+def centered_o_plan(ns, s, k, d, dtype):
+    """The kernel's launch plan for holes [ns, s, k] of ``dtype`` and d
+    physical states: one CTA of ``threads`` per (site, chunk of
+    ``cols_per_cta`` columns of K); each thread keeps ``rows_per_thread``
+    16-byte vectors of the chunk's tile in registers;
+    rows come in ``row_blocks`` blocks of ``block_rows`` (more than one
+    block re-reads all but the last in the write pass). ``smem_bytes`` is
+    the CTA's static shared memory, ``tile_bytes`` its register tile,
+    ``ctas_per_sm`` the CTAs an SM holds at least (the kernel's launch
+    bounds); offsets are 64-bit whatever the size."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the CUDA centered_o takes float32/float64, got "
+                        f"{dtype} (complex support comes with fermions)")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"the CUDA centered_o takes 1 <= d <= {MAX_D}, "
+                         f"got d = {d}")
+    if min(ns, s, k) < 1:
+        raise ValueError(f"centered_o plan of an empty buffer: "
+                         f"{(ns, s, k)}")
+    item = torch.finfo(dtype).bits // 8
+    vec = 16 // item
+    kc = LANES_PER_ROW * vec
+    chunks = -(-k // kc)
+    r = 1
+    while r < MAX_ROWS_PER_THREAD and r * ROWS_PER_PASS < ns:
+        r *= 2
+    block_rows = r * ROWS_PER_PASS
+    dp = 2 if d <= 2 else 4
+    ctas = s * chunks
+    if ctas >= 2 ** 31:
+        raise ValueError(f"centered_o grid of {ctas} CTAs exceeds 2^31 - 1")
+    smem = (block_rows * (item + 4) + (THREADS // 32 + 1) * dp * kc * item)
+    return {"threads": THREADS, "cols_per_cta": kc, "col_chunks": chunks,
+            "ctas": ctas, "rows_per_thread": r, "block_rows": block_rows,
+            "row_blocks": -(-ns // block_rows), "dp": dp, "vec": vec,
+            "smem_bytes": smem, "tile_bytes": block_rows * kc * item,
+            "ctas_per_sm": 4 if r <= 2 else 3 if r == 4 else 2,
+            "out_elements": ns * s * d * k, "offset_bits": 64}
 
 
-BLOCK_C = 256
+def _check_operands(holes, psi, cfg):
+    """Shapes, dtypes and devices the kernel takes (holes' dtype and d are
+    checked by the plan)."""
+    if holes.dim() != 3:
+        raise ValueError(f"centered_o holes must be [Ns, S, K], got "
+                         f"{tuple(holes.shape)}")
+    ns, s, _ = holes.shape
+    if psi.shape != (ns, s) or cfg.shape != (ns, s):
+        raise ValueError(f"centered_o shapes: holes {tuple(holes.shape)}, "
+                         f"psi {tuple(psi.shape)}, cfg {tuple(cfg.shape)}")
+    if psi.dtype != holes.dtype:
+        raise TypeError(f"centered_o psi is {psi.dtype}, holes "
+                        f"{holes.dtype}")
+    if cfg.dtype != torch.int64:
+        raise TypeError(f"the CUDA centered_o takes int64 configurations, "
+                        f"got {cfg.dtype}")
+    if psi.device != holes.device or cfg.device != holes.device:
+        raise ValueError("centered_o operands lie on different devices")
 
 
 def centered_o(holes, psi, cfg, d):
@@ -94,32 +111,28 @@ def centered_o(holes, psi, cfg, d):
     if holes.device.type != "cuda":
         raise RuntimeError(f"centered_o runs on cpu or cuda, not "
                            f"{holes.device}")
-    if holes.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the CUDA centered_o takes float32/float64, got "
-                        f"{holes.dtype} (complex support comes with fermions)")
+    _check_operands(holes, psi, cfg)
     ns, s, k = holes.shape
-    if psi.shape != (ns, s) or cfg.shape != (ns, s):
-        raise ValueError(f"centered_o shapes: holes {tuple(holes.shape)}, "
-                         f"psi {tuple(psi.shape)}, cfg {tuple(cfg.shape)}")
-    if psi.dtype != holes.dtype or psi.device != holes.device \
-            or cfg.device != holes.device:
-        raise ValueError("centered_o operands differ in dtype or device")
-    if ns * s * d * k >= 2 ** 31:
-        raise ValueError("centered_o buffer too large for 32-bit offsets")
-    triton, kernel = _kernel()
-    holes, psi = holes.contiguous(), psi.contiguous()
-    cfg = cfg.to(torch.int32).contiguous()
-    p = s * d * k
-    out = torch.empty(ns, p, dtype=holes.dtype, device=holes.device)
-    block_s = min(32, triton.next_power_of_2(max(ns, 1)))
-    grid = (triton.cdiv(p, BLOCK_C),)
+    if ns * s * k == 0:
+        return holes.new_empty(ns, s * d * k)
+    plan = centered_o_plan(ns, s, k, d, holes.dtype)
+    from peps_tpu_torch.kernels._build import check, cuda_library
+    lib = cuda_library().lib
+    holes, psi, cfg = holes.contiguous(), psi.contiguous(), cfg.contiguous()
+    out = torch.empty(ns, s * d * k, dtype=holes.dtype, device=holes.device)
+    vec = (k % plan["vec"] == 0 and holes.data_ptr() % 16 == 0
+           and out.data_ptr() % 16 == 0)
+    args = (ctypes.c_int64 * 9)(ns, s, k, d, plan["col_chunks"],
+                                plan["rows_per_thread"], plan["row_blocks"],
+                                plan["dp"], int(vec))
+    fn = lib.centered_o_f32 if holes.dtype == torch.float32 \
+        else lib.centered_o_f64
     with torch.cuda.device(holes.device):
-        kernel[grid](holes, psi, cfg, out, ns, s, k, p, D_PHYS=d,
-                     BLOCK_S=block_s, BLOCK_C=BLOCK_C, num_warps=4)
+        check(fn(holes.data_ptr(), psi.data_ptr(), cfg.data_ptr(),
+                 out.data_ptr(), args,
+                 torch.cuda.current_stream(holes.device).cuda_stream))
     centered_o.launches += 1
     return out
 
 
 centered_o.launches = 0
-
-

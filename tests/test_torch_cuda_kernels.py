@@ -126,18 +126,108 @@ def test_col_transfer_counts_one_launch_per_call(dev):
     assert k1.col_transfer.launches == before + 4
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("ns,sites,k,d", [(37, 5, 81, 3), (32, 64, 4096, 2)])
-def test_centered_o(dev, dtype, ns, sites, k, d):
-    gen = torch.Generator(device=dev).manual_seed(ns)
+def _psi(gen, dev, dtype, ns, sites):
+    """|psi| in [0.5, 1.5): a psi near 0 would make max |plain| orders of
+    magnitude above a typical output and TOL of it a loose check. psi = 0,
+    NaN and subnormal psi are planted by the tests that need them."""
+    mag = 0.5 + torch.rand(ns, sites, generator=gen, device=dev, dtype=dtype)
+    sign = torch.randint(0, 2, (ns, sites), generator=gen, device=dev)
+    return torch.where(sign == 1, mag, -mag)
+
+
+def _k2_operands(dev, dtype, ns, sites, k, d, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
     holes = _r(gen, dev, dtype, ns, sites, k)
-    psi = _r(gen, dev, dtype, ns, sites)
-    psi[0, 0] = 0.0
+    psi = _psi(gen, dev, dtype, ns, sites)
     cfg = torch.randint(0, d, (ns, sites), generator=gen, device=dev)
+    return holes, psi, cfg
+
+
+# K2 tolerances: the kernel multiplies by 1/psi and by 1/sqrt(Ns) where the
+# plain version divides, about one ulp each, and sums in its own dtype in
+# another order (per-thread partials, shuffles, then shared memory): well
+# inside TOL of max |plain|.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ns,sites,k,d", [
+    (37, 5, 81, 3),           # K % 4 != 0: scalar accesses, ragged chunk
+    (32, 64, 4096, 2),        # the main path, 8x8 D=8, 32 chains
+    (600, 3, 40, 2),          # three row blocks, the last one partial
+    (300, 5, 81, 4),          # two row blocks, scalar accesses, d = 4
+    (256, 144, 10000, 2),     # the stretch run, 12x12 D=10, 256 samples
+])
+def test_centered_o(dev, dtype, ns, sites, k, d):
+    holes, psi, cfg = _k2_operands(dev, dtype, ns, sites, k, d, ns)
+    psi[0, 0] = 0.0
+    psi[ns - 1] = 0.0                                 # a whole psi = 0 row
     before = k2.centered_o.launches
     out = k2.centered_o(holes, psi, cfg, d)
     assert k2.centered_o.launches == before + 1
     assert _rel(out, k2.centered_o_plain(holes, psi, cfg, d)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_centered_o_misaligned_holes(dev, dtype):
+    """A holes view whose first element is not 16-byte aligned takes the
+    scalar accesses even though K is a multiple of the vector width."""
+    ns, sites, k, d = 40, 3, 64, 2
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flat = _r(gen, dev, dtype, ns * sites * k + 1)
+    holes = flat[1:].view(ns, sites, k)
+    assert holes.data_ptr() % 16 != 0
+    psi = _psi(gen, dev, dtype, ns, sites)
+    cfg = torch.randint(0, d, (ns, sites), generator=gen, device=dev)
+    out = k2.centered_o(holes, psi, cfg, d)
+    assert _rel(out, k2.centered_o_plain(holes, psi, cfg, d)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_centered_o_nan_psi_matches_plain_nan_pattern(dev, dtype):
+    """A NaN psi makes its site's columns NaN in every row (NaN * 0 in the
+    one-hot product, then the mean); the finite rest agrees in value."""
+    ns, sites, k, d = 48, 4, 64, 2
+    holes, psi, cfg = _k2_operands(dev, dtype, ns, sites, k, d, 11)
+    psi[5, 2] = float("nan")
+    psi[7, 0] = 0.0
+    out = k2.centered_o(holes, psi, cfg, d)
+    ref = k2.centered_o_plain(holes, psi, cfg, d)
+    assert torch.equal(out.isnan(), ref.isnan())
+    assert bool(ref.isnan()[:, 2 * d * k:3 * d * k].all())
+    fin = ~ref.isnan()
+    assert ((out[fin] - ref[fin]).abs().max()
+            / ref[fin].abs().max()).item() <= TOL[dtype]
+
+
+def test_centered_o_subnormal_psi_divides(dev):
+    """An f32 psi of 1e-40 (subnormal: its reciprocal overflows) with holes
+    of its size: the kernel divides that row, as the plain version does,
+    instead of multiplying by inf."""
+    ns, sites, k, d = 40, 3, 64, 2
+    holes, psi, cfg = _k2_operands(dev, torch.float32, ns, sites, k, d, 5)
+    psi[3, 1] = 1e-40
+    holes[3, 1] *= 1e-40
+    out = k2.centered_o(holes, psi, cfg, d)
+    ref = k2.centered_o_plain(holes, psi, cfg, d)
+    assert bool(ref.isfinite().all()) and bool(out.isfinite().all())
+    assert _rel(out, ref) <= TOL[torch.float32]
+
+
+def test_centered_o_past_2_31_elements(dev):
+    """16x16, D=12, 256 samples, f32: a [256, 10616832] buffer of 2.7e9
+    elements. Centering is per column, so the plain version on the first
+    and the last site alone gives those sites' columns."""
+    ns, sites, k, d = 256, 256, 12 ** 4, 2
+    holes, psi, cfg = _k2_operands(dev, torch.float32, ns, sites, k, d, 3)
+    assert ns * sites * d * k > 2 ** 31
+    before = k2.centered_o.launches
+    out = k2.centered_o(holes, psi, cfg, d)
+    assert k2.centered_o.launches == before + 1
+    assert out.shape == (ns, sites * d * k)
+    for site in (0, sites - 1):
+        cols = slice(site * d * k, (site + 1) * d * k)
+        ref = k2.centered_o_plain(holes[:, site:site + 1],
+                                  psi[:, site:site + 1],
+                                  cfg[:, site:site + 1], d)
+        assert _rel(out[:, cols], ref) <= TOL[torch.float32]
 
 
 def test_complex_raises_on_cuda(dev):
@@ -145,3 +235,6 @@ def test_complex_raises_on_cuda(dev):
     s = torch.zeros(2, 2, 2, 2, dtype=torch.complex64, device=dev)
     with pytest.raises(TypeError):
         k1.col_transfer(x, x, s, x)
+    with pytest.raises(TypeError):
+        k2.centered_o(x, x[..., 0], torch.zeros(2, 2, dtype=torch.int64,
+                                                device=dev), 2)

@@ -66,10 +66,15 @@ def test_package_imports_no_jax_module():
 
 
 def test_kernel_sources_ship_in_csrc():
-    src = REPO / "peps_tpu_torch" / "csrc" / "col_transfer.cu"
-    text = src.read_text()
-    assert 'extern "C"' in text and "col_transfer_f32" in text \
-        and "col_transfer_f64" in text
+    for name, symbols in (("col_transfer.cu", ("col_transfer_f32",
+                                               "col_transfer_f64")),
+                          ("centered_o.cu", ("centered_o_f32",
+                                             "centered_o_f64"))):
+        text = (REPO / "peps_tpu_torch" / "csrc" / name).read_text()
+        assert 'extern "C"' in text and all(s in text for s in symbols)
+    k2_text = (REPO / "peps_tpu_torch" / "kernels" / "centered_o.py") \
+        .read_text()
+    assert "triton" not in k2_text.lower()
 
 
 def test_tf32_is_off():
@@ -117,8 +122,8 @@ def test_centered_o_launches_or_raises_on_cuda(monkeypatch):
     before = k2.centered_o.launches
     holes = _cuda_like(3, 4, 16)
     psi = _cuda_like(3, 4)
-    cfg = _cuda_like(3, 4)
-    with pytest.raises((ImportError, RuntimeError)):
+    cfg = _cuda_like(3, 4, dtype=torch.int64)
+    with pytest.raises((RuntimeError, OSError)):
         k2.centered_o(holes, psi, cfg, 2)
     assert k2.centered_o.launches == before
 
