@@ -29,14 +29,32 @@ Phases, one line each (failures exit non-zero before the last line):
      memory counted from the phase's start;
   4. the sketch-vs-svd accuracy gate: local energies of 16 sampled
      configurations under both compression schemes, max relative
-     difference < 1e-2.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
+     difference < 1e-2;
+  5. measure() on the main path's optimized state and final
+     configurations, through the entry point: exchange, 32 chains, 2
+     warm-up sweeps, 8 samples in chunks of 4, the S+S- walkers on; one
+     line with sampling_wall_s, samples per second, the energy per site
+     and its error, acceptance, autocorrelation time, sum of <Sz>, the
+     mean nearest-neighbour <S+S-> in both frames, the bond-sum energy, K1
+     launches inside measure(), peak device memory from the phase's start
+     (and what earlier phases still hold at its start) and the phase's
+     wall seconds; then a breakdown of one sample step
+     (sweep, energy pass, walker pass; CUDA-synchronized host clock) and
+     dump_stats into a temporary directory. Checks: finite statistics,
+     E/site in (-0.70, -0.40), |sum <Sz>| < 1e-5, negative nearest-
+     neighbour <S+S-> in both frames, the bond sum within max(5 stderr,
+     3% |E|) of the E_loc energy, K1 launched, a CSV per statistic.
+Phase 2 also holds K1 at the walker's shape (2048 items, top, bot and site
+broadcast over the start column). The line before the last is the kernels'
+JSON record; the last line is {"ok": true, "device": {...}}. Without a CUDA
+device it exits non-zero.
 """
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 LY = LX = 8
@@ -47,6 +65,8 @@ PHYS = 2
 SU_STEPS = 40
 WARMUP_SWEEPS = 2
 SR_ITERS = 3
+MEASURE_SAMPLES = 8
+MEASURE_CHUNK = 4
 TOL = {"float32": 1e-5, "float64": 1e-12}
 HBM_BPS = 3.35e12          # H100 SXM device memory rate (data sheet)
 EINSUM_1CALL = "...alc,...auA,...uldr,...cdC->...ArC"
@@ -138,6 +158,10 @@ def k1_cases(dtype, device, gen):
     env = (CHI, D, CHI)
     z = r(D * CHI, CHI).reshape(D, CHI, CHI).permute(2, 0, 1)
     y = r(D, losk, losk).permute(1, 0, 2)
+    # the walker's column step: walkers [nc, Ly, Lx(x1)], column x of the
+    # stacks and of the candidates broadcast over x1 (algorithm/measure.py)
+    w_tops, w_bots = r(nc, ly + 1, lx, *env), r(nc, ly + 1, lx, *env)
+    w_sites, wx = r(nc, ly, lx, D, D, D, D), lx // 2
     return [
         ("sketch_v_step", "right", r(nc, *env), r(nc, *env), r(nc, D, D, D, D), z),
         ("sketch_w_step", "left", r(nc, CHI, D, losk), r(nc, *env),
@@ -153,6 +177,8 @@ def k1_cases(dtype, device, gen):
         ("nn_traces", "left", r(nc, ly, lx - 1, 1, *env),
          r(nc, ly, lx - 1, 1, *env), r(ly, lx - 1, d, D, D, D, D),
          r(nc, ly, lx - 1, 1, *env)),
+        ("walker", "left", r(nc, ly, lx, *env), w_tops[:, :ly, wx, None],
+         w_sites[:, :, wx, None], w_bots[:, 1:, wx, None]),
     ]
 
 
@@ -430,6 +456,162 @@ def phase_gate(res):
         fail(f"sketch-vs-svd gate {gate} (non-finite {int((~finite).sum())})")
 
 
+def nn_mean(corr):
+    """Mean nearest-neighbour entry [.., x, x+1] of an in-line correlator
+    [lines, L, L]."""
+    n = corr.shape[-1]
+    return float(sum(corr[:, x, x + 1].mean() for x in range(n - 1))
+                 / (n - 1))
+
+
+def bond_sum_energy(stats):
+    """sum over nearest-neighbour bonds of <Sz_i Sz_j> + <S+_i S-_j>: the
+    Heisenberg energy (J = 1) from the registry's observables. For a real
+    state <S+_i S-_j> = <S-_i S+_j>, so the bond's transverse term
+    (S+S- + S-S+) / 2 has the expectation of <S+_i S-_j> alone."""
+    szsz = stats["szsz"][0]
+    row, col = stats["spsm_row"][0], stats["spsm_col"][0]
+    e = 0.0
+    for y in range(LY):
+        for x in range(LX):
+            i = y * LX + x
+            if x + 1 < LX:
+                e += szsz[i, i + 1] + row[y, x, x + 1]
+            if y + 1 < LY:
+                e += szsz[i, i + LX] + col[x, y, y + 1]
+    return float(e)
+
+
+def sync_s(fn):
+    """Host seconds of fn() between two synchronizations."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def step_breakdown(state, configs, trunc):
+    """Seconds of one sample step's parts on the same configurations: a
+    sweep of every chain, the energy pass (env stacks of both frames, local
+    energies, diagonal observables) and the walker pass (the S+S- walkers
+    in both frames: the full step less the step without walkers), each
+    the mean of two synchronized runs after one warm-up."""
+    import dataclasses
+    import torch
+    from peps_tpu_torch.algorithm.energy import ModelTensors
+    from peps_tpu_torch.algorithm.measure import (MeasurementParams,
+                                                  _sample_outputs)
+    from peps_tpu_torch.algorithm.registry import spin_registry
+    from peps_tpu_torch.lattice import transpose_tps
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.montecarlo.sweep import draw_uniforms, mc_sweep
+
+    tps_t = transpose_tps(state)
+    mt = ModelTensors.from_model(spin.heisenberg(), state.dtype, state.device)
+    gen = torch.Generator(device=state.device).manual_seed(9)
+    params = MeasurementParams(nchains=NCHAINS)
+    cheap = dataclasses.replace(params, measure_offdiag_corr=False)
+    runs = {
+        "sweep": lambda: mc_sweep(state, tps_t, configs, CHI, trunc,
+                                  uniforms=draw_uniforms(
+                                      gen, NCHAINS, LY, LX, state.dtype,
+                                      state.device)),
+        "energy_pass": lambda: _sample_outputs(
+            state, tps_t, configs, mt, CHI, trunc, spin_registry(cheap),
+            cheap),
+        "full_evaluation": lambda: _sample_outputs(
+            state, tps_t, configs, mt, CHI, trunc, spin_registry(params),
+            params),
+    }
+    out = {}
+    for name, fn in runs.items():
+        sync_s(fn)
+        out[name] = (sync_s(fn) + sync_s(fn)) / 2
+    out["walker_pass"] = out.pop("full_evaluation") - out["energy_pass"]
+    total = sum(out.values())
+    return {**{f"{k}_s": v for k, v in out.items()},
+            **{f"{k}_share": v / total for k, v in out.items()}}
+
+
+def phase_measure(res, device):
+    """Phase 5: measure() on the optimized state through the entry point.
+    Returns K1's launches inside measure()."""
+    import numpy as np
+    import torch
+    from peps_tpu_torch.algorithm.measure import (MeasurementParams,
+                                                  dump_stats, measure)
+    from peps_tpu_torch.kernels.centered_o import centered_o
+    from peps_tpu_torch.kernels.col_transfer import col_transfer
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.montecarlo.sweep import UpdateRule
+
+    n = LY * LX
+    trunc = TruncParams(CHI, 1, 1e-6, scheme="sketch")
+    params = MeasurementParams(num_samples=MEASURE_SAMPLES,
+                               num_warmup_sweeps=WARMUP_SWEEPS,
+                               nchains=NCHAINS, chunk_size=MEASURE_CHUNK,
+                               measure_offdiag_corr=True)
+    col_transfer.launches = 0
+    centered_o.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device) / 1e9
+    t0 = time.perf_counter()
+    out = measure(res.state, spin.heisenberg(), params, CHI, trunc,
+                  UpdateRule("exchange"), res.final_configs,
+                  generator=torch.Generator(device=device).manual_seed(3))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = col_transfer.launches
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    e, e_err = (float(v) for v in out.stats["energy"])
+    sum_sz = float(np.sum(out.stats["sz"][0]))
+    nn_row = nn_mean(out.stats["spsm_row"][0])
+    nn_col = nn_mean(out.stats["spsm_col"][0])
+    e_bonds = bond_sum_energy(out.stats)
+    samples = NCHAINS * MEASURE_SAMPLES
+    log("measure", samples=samples, warmup_sweeps=WARMUP_SWEEPS,
+        chunk_size=MEASURE_CHUNK, sampling_wall_s=out.sampling_wall_s,
+        samples_per_s=samples / out.sampling_wall_s,
+        energy_per_site=e / n, energy_stderr_per_site=e_err / n,
+        bond_sum_energy_per_site=e_bonds / n, accept_rate=out.accept_rate,
+        energy_autocorr_time=out.energy_autocorr_time, sum_sz=sum_sz,
+        nn_spsm_row=nn_row, nn_spsm_col=nn_col,
+        col_transfer_launches=launches,
+        centered_o_launches=centered_o.launches, peak_mem_GB=peak,
+        mem_held_at_start_GB=held, phase_wall_s=wall)
+    log("measure_breakdown", **step_breakdown(res.state, res.final_configs,
+                                              trunc))
+    with tempfile.TemporaryDirectory() as tmp:
+        dump_stats(out, tmp)
+        missing = [k for k in out.stats
+                   if not os.path.exists(os.path.join(tmp, "stats",
+                                                      f"{k}.csv"))]
+    finite = all(np.all(np.isfinite(v)) for pair in out.stats.values()
+                 for v in pair)
+    if not finite or not math.isfinite(out.energy_autocorr_time):
+        fail("measure: non-finite statistics")
+    if not -0.70 < e / n < -0.40:
+        fail(f"measure: energy per site {e / n} outside (-0.70, -0.40)")
+    if not abs(sum_sz) < 1e-5:
+        fail(f"measure: sum of <Sz> {sum_sz}, exchange conserves Sz = 0")
+    if not (nn_row < 0 and nn_col < 0):
+        fail(f"measure: nearest-neighbour <S+S-> {nn_row}, {nn_col} not "
+             "negative")
+    tol = max(5 * e_err, 0.03 * abs(e))
+    if not abs(e_bonds - e) <= tol:
+        fail(f"measure: bond-sum energy {e_bonds} vs E_loc energy {e} "
+             f"(tolerance {tol})")
+    if launches == 0:
+        fail("measure: kernel col_transfer was not launched")
+    if missing:
+        fail(f"measure: dump_stats wrote no CSV for {missing}")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -461,12 +643,14 @@ def main():
     kern = phase_kernels(device)
     res, launches = phase_main_path(device)
     phase_gate(res)
+    launches_measure = phase_measure(res, device)
 
     record = {"kernels": [
         {"name": "col_transfer", "route": "cuda",
          "source": "peps_tpu_torch/csrc/col_transfer.cu",
          "replaces": "peps_tpu/contraction/bmps.py:250",
-         "launches": launches["col_transfer"], **kern["col_transfer"]},
+         "launches": launches["col_transfer"],
+         "launches_measure": launches_measure, **kern["col_transfer"]},
         {"name": "centered_o", "route": "cuda",
          "source": "peps_tpu_torch/csrc/centered_o.cu",
          "replaces": "peps_tpu/algorithm/mc_evaluator.py:316",

@@ -46,6 +46,19 @@ class ModelTensors(NamedTuple):
         return cls(*(conv(f) for f in cls._fields))
 
 
+def bosonic_model_tensors(model, dtype, device, entry: str) -> ModelTensors:
+    """ModelTensors of a bosonic square-lattice model (passed through when
+    it already is one); anything else is a fermionic model, which the port
+    takes with ROADMAP queue 1, item 10."""
+    if isinstance(model, ModelTensors):
+        return model
+    if not hasattr(model, "h_h"):
+        raise NotImplementedError(
+            f"{entry} of a {type(model).__name__}: fermionic models come "
+            "with ROADMAP queue 1, item 10")
+    return ModelTensors.from_model(model, dtype, device)
+
+
 class EnergyHoles(NamedTuple):
     e_loc: torch.Tensor                # [nc]
     o_tensor: torch.Tensor | None      # [nc, Ly, Lx, d, D, D, D, D]
@@ -120,9 +133,12 @@ def _check_model(model: ModelTensors):
 
 
 def _local_energy(tps, config, model: ModelTensors, chi: int,
-                  trunc: TruncParams, stacks=None):
+                  trunc: TruncParams, stacks=None, stacks_t=None):
     """(e_loc [nc], _RowPass, log_abs_psi [nc], mant [nc]) for config
-    [nc, Ly, Lx]. stacks: optional env stacks of these configurations."""
+    [nc, Ly, Lx]. stacks / stacks_t: optional env stacks of these
+    configurations in the normal / transposed frame (the latter is read
+    only for vertical bonds), so that a caller shares them with other
+    passes over the same configurations."""
     _check_model(model)
     ly = tps.shape[0]
     config = config.long()
@@ -137,7 +153,8 @@ def _local_energy(tps, config, model: ModelTensors, chi: int,
         tps_t = transpose_tps(tps)
         cfg_t = config.transpose(1, 2)
         tn_t = project(tps_t, cfg_t)
-        stacks_t = bmps.all_env_stacks(tn_t, chi, trunc)
+        if stacks_t is None:
+            stacks_t = bmps.all_env_stacks(tn_t, chi, trunc)
         e = e + _bond_pass(tps_t, tn_t, cfg_t, model.h_v, stacks_t)
     mant = bmps.close_boundary(stacks.tops[:, ly])
     rdt = tn.real.dtype if tn.is_complex() else tn.dtype

@@ -23,15 +23,16 @@ from peps_tpu_torch.kernels.centered_o import centered_o
 from peps_tpu_torch.lattice import transpose_tps
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.montecarlo.statistics import mean_and_binned_error
-from peps_tpu_torch.montecarlo.sweep import mc_sweep
+from peps_tpu_torch.montecarlo.sweep import UpdateRule, mc_sweep
 from peps_tpu_torch.optimizer.optimizer import Evaluation
 from peps_tpu_torch.tps import project
 
 
 @dataclasses.dataclass(frozen=True)
 class MCParams:
-    num_samples: int = 100          # sample steps (one sweep each) per chain
+    num_samples: int = 100          # sample steps per chain
     num_warmup_sweeps: int = 100
+    sweeps_between_samples: int = 1
     nchains: int = 64
 
 
@@ -39,13 +40,14 @@ UniformSource = Callable[[], tuple]
 
 
 def _mc_collect(tps, configs, model: ModelTensors, chi, trunc, n_samples,
-                with_sr, uniform_source):
-    """Sample loop, one sweep per sample step (the reference's default
-    sweeps_between_samples = 1; other values are not ported). Returns
-    (configs', accepted, trials, outs) with outs a
-    dict: e_locs [S, nc], log_psi [S, nc]; with SR: holes [S, nc, Ly, Lx,
-    D^4], psi_loc [S, nc, Ly, Lx], cfgs [S, nc, Ly, Lx]; with a plain
-    gradient: o_sum and eo_sum [P] (sums of O and E_loc O over samples)."""
+                with_sr, uniform_source, rule: UpdateRule = UpdateRule(),
+                sweeps_between: int = 1, with_grad: bool = True):
+    """Sample loop: sweeps_between sweeps per sample step, the first one
+    from the evaluated network's bottom stack. Returns (configs', accepted,
+    trials, outs) with outs a dict: e_locs [S, nc], log_psi [S, nc]; with
+    SR: holes [S, nc, Ly, Lx, D^4], psi_loc [S, nc, Ly, Lx], cfgs [S, nc,
+    Ly, Lx]; with a plain gradient: o_sum and eo_sum [P] (sums of O and
+    E_loc O over samples); with_grad=False keeps the energies only."""
     tps_t = transpose_tps(tps)
     ly, lx, d = tps.shape[0], tps.shape[1], tps.shape[2]
     configs = configs.long()
@@ -58,16 +60,20 @@ def _mc_collect(tps, configs, model: ModelTensors, chi, trunc, n_samples,
             "cfgs": []}
     o_sum = eo_sum = None
     for _ in range(n_samples):
-        configs, st = mc_sweep(tps, tps_t, configs, chi, trunc,
-                               uniforms=uniform_source(), bots=bots)
-        acc = acc + st.accepted
-        tri = tri + st.trials
+        for i in range(sweeps_between):
+            configs, st = mc_sweep(tps, tps_t, configs, chi, trunc,
+                                   uniforms=uniform_source(),
+                                   bots=bots if i == 0 else None, rule=rule)
+            acc = acc + st.accepted
+            tri = tri + st.trials
         stacks = bmps.all_env_stacks(project(tps, configs), chi, trunc)
         bots = stacks.bots
         e, rp, log_abs, _ = _local_energy(tps, configs, model, chi, trunc,
                                           stacks)
         outs["e_locs"].append(e)
         outs["log_psi"].append(log_abs)
+        if not with_grad:
+            continue
         if with_sr:
             nc = configs.shape[0]
             outs["holes"].append(rp.holes.reshape(nc, ly, lx, -1))
@@ -96,10 +102,23 @@ def _center_scale(holes, psi_loc, cfgs, d):
                       cfgs.reshape(ns, ly * lx), d)
 
 
+def mc_energy_only(tps, configs, model: ModelTensors, chi: int,
+                   trunc: TruncParams, rule: UpdateRule, n_samples: int,
+                   uniform_source: UniformSource, sweeps_between: int = 1):
+    """Energy-only MC estimate, no holes kept and no gradient (the
+    reference's EvaluateEnergyOnly). Returns (energy, stderr) as 0-d
+    tensors."""
+    _, _, _, outs = _mc_collect(tps, configs, model, chi, trunc, n_samples,
+                                False, uniform_source, rule, sweeps_between,
+                                with_grad=False)
+    return mean_and_binned_error(outs["e_locs"].real)
+
+
 def mc_energy_grad(tps, configs, model: ModelTensors, chi: int,
                    trunc: TruncParams, params: MCParams,
                    uniform_source: UniformSource,
-                   with_sr_buffers: bool = False):
+                   with_sr_buffers: bool = False,
+                   rule: UpdateRule = UpdateRule()):
     """One VMC energy/gradient estimate. Returns (Evaluation, configs',
     log_psi [S, nc]).
 
@@ -108,7 +127,7 @@ def mc_energy_grad(tps, configs, model: ModelTensors, chi: int,
     integer (the non-finite sample count) back to the host."""
     configs, acc, tri, outs = _mc_collect(
         tps, configs, model, chi, trunc, params.num_samples, with_sr_buffers,
-        uniform_source)
+        uniform_source, rule, params.sweeps_between_samples)
     e_locs = outs["e_locs"]
     s, c = e_locs.shape
     n = s * c

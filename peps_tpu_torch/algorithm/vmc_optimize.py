@@ -17,8 +17,9 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from peps_tpu_torch.algorithm.energy import ModelTensors
+from peps_tpu_torch.algorithm.energy import bosonic_model_tensors
 from peps_tpu_torch.algorithm.mc_evaluator import MCParams, mc_energy_grad
+from peps_tpu_torch.device import require_real_on_card
 from peps_tpu_torch.lattice import transpose_tps
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.montecarlo.engine import (ensure_validity,
@@ -37,7 +38,7 @@ class VMCParams:
     trunc: TruncParams
     mc: MCParams
     optimizer: OptimizerParams
-    rule: UpdateRule = UpdateRule("exchange")   # only exchange is ported
+    rule: UpdateRule = UpdateRule("exchange")
     occupancy: tuple | None = None   # ((state, count), ...) or None = uniform
 
 
@@ -55,19 +56,20 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
                  configs: torch.Tensor | None = None,
                  sweep_uniforms: Callable[[], tuple] | None = None,
                  callback=None) -> VMCResult:
-    """Optimize a real or complex OBC TPS for a bosonic model.
+    """Optimize a real or complex OBC TPS for a bosonic model; a complex
+    one runs on the CPU only (``device.require_real_on_card``).
 
     generator: a ``torch.Generator`` on tps.device (default: seeded 0).
     configs: optional initial configurations [nc, Ly, Lx] (default: drawn
     from params.occupancy). sweep_uniforms: optional callable returning each
     sweep's uniforms (u_h, u_v) in order (default: drawn from generator)."""
+    require_real_on_card(tps, "vmc_optimize")
     ly, lx, d = tps.shape[0], tps.shape[1], tps.shape[2]
     dev = tps.device
     if getattr(model, "phys_dim", d) != d:
         raise ValueError(f"model physical dimension {model.phys_dim} != TPS "
                          f"physical dimension {d} (tps shape {tps.shape})")
-    mt = model if isinstance(model, ModelTensors) \
-        else ModelTensors.from_model(model, tps.dtype, dev)
+    mt = bosonic_model_tensors(model, tps.dtype, dev, "vmc_optimize")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if sweep_uniforms is None:
@@ -92,7 +94,7 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
     tps_t = transpose_tps(tps)
     for _ in range(params.mc.num_warmup_sweeps):
         configs, _ = mc_sweep(tps, tps_t, configs, params.chi, params.trunc,
-                              uniforms=sweep_uniforms())
+                              uniforms=sweep_uniforms(), rule=params.rule)
 
     sampler = {"configs": configs}
     needs_sr = isinstance(params.optimizer.algorithm, SRParams)
@@ -101,7 +103,7 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
         ev, cfgs, _ = mc_energy_grad(
             state, sampler["configs"], mt, params.chi, params.trunc,
             params.mc, sweep_uniforms,
-            with_sr_buffers=needs_sr)
+            with_sr_buffers=needs_sr, rule=params.rule)
         sampler["configs"] = cfgs
         return ev
 

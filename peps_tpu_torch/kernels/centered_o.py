@@ -97,15 +97,16 @@ def _check_operands(holes, psi, cfg):
     if psi.dtype != holes.dtype:
         raise TypeError(f"centered_o psi is {psi.dtype}, holes "
                         f"{holes.dtype}")
-    if cfg.dtype != torch.int64:
-        raise TypeError(f"the CUDA centered_o takes int64 configurations, "
-                        f"got {cfg.dtype}")
+    if cfg.dtype.is_floating_point or cfg.dtype.is_complex:
+        raise TypeError(f"centered_o configurations must be integers, got "
+                        f"{cfg.dtype}")
     if psi.device != holes.device or cfg.device != holes.device:
         raise ValueError("centered_o operands lie on different devices")
 
 
 def centered_o(holes, psi, cfg, d):
-    """K2 wrapper. CPU tensors: plain version. CUDA tensors: the kernel."""
+    """K2 wrapper. CPU tensors: plain version. CUDA tensors: the kernel.
+    cfg may be of any integer dtype on either."""
     if holes.device.type == "cpu":
         return centered_o_plain(holes, psi, cfg, d)
     if holes.device.type != "cuda":
@@ -118,7 +119,10 @@ def centered_o(holes, psi, cfg, d):
     plan = centered_o_plan(ns, s, k, d, holes.dtype)
     from peps_tpu_torch.kernels._build import check, cuda_library
     lib = cuda_library().lib
-    holes, psi, cfg = holes.contiguous(), psi.contiguous(), cfg.contiguous()
+    # the kernel reads int64 states; any integer dtype converts here, as
+    # the plain version's cfg.long() does
+    holes, psi, cfg = holes.contiguous(), psi.contiguous(), \
+        cfg.to(torch.int64).contiguous()
     out = torch.empty(ns, s * d * k, dtype=holes.dtype, device=holes.device)
     vec = (k % plan["vec"] == 0 and holes.data_ptr() % 16 == 0
            and out.data_ptr() % 16 == 0)

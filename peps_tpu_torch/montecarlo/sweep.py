@@ -11,8 +11,10 @@ axis is a leading batch dimension; rows and bonds are Python loops.
 Random numbers: one uniform per bond per frame, ``u_h [nc, Ly, Lx-1]`` and
 ``u_v [nc, Lx, Ly-1]``, either passed in (the parity tests replay the
 reference's key splits) or drawn from a ``torch.Generator`` in one call per
-sweep. Only the "exchange" rule is ported; Suwa-Todo comes with ROADMAP
-queue 1, item 4.
+sweep. Both update rules of the reference take that one uniform per bond:
+"exchange" (swap the two values if they differ, Metropolis accept) and
+"suwa_todo" (a rejection-free pick over all d^2 values of the bond,
+optionally masked by a conservation table).
 """
 from __future__ import annotations
 
@@ -25,18 +27,28 @@ from peps_tpu_torch.contraction import bmps
 from peps_tpu_torch.kernels.col_transfer import col_transfer, \
     col_transfer_right
 from peps_tpu_torch.linalg import TruncParams
+from peps_tpu_torch.montecarlo.suwa_todo import suwa_todo_pick
 from peps_tpu_torch.tps import project
 
 
 @dataclasses.dataclass(frozen=True)
 class UpdateRule:
-    """The bond update of a sweep; only "exchange" is ported."""
+    """mode: "exchange" or "suwa_todo". conserve_mask: optional [d*d, d*d]
+    0/1 table (nested tuples, hashable) of the allowed (current pair ->
+    new pair) transitions, applied in suwa_todo mode."""
     mode: str = "exchange"
+    conserve_mask: tuple | None = None
 
     def __post_init__(self):
-        if self.mode != "exchange":
-            raise NotImplementedError(
-                f"update rule {self.mode!r}: ROADMAP queue 1, item 4")
+        if self.mode not in ("exchange", "suwa_todo"):
+            raise ValueError(f"update rule {self.mode!r}: expected "
+                             "'exchange' or 'suwa_todo'")
+
+    def mask_array(self, d: int, dtype, device) -> torch.Tensor | None:
+        if self.conserve_mask is None:
+            return None
+        return torch.as_tensor(self.conserve_mask, dtype=dtype,
+                               device=device).reshape(d * d, d * d)
 
 
 class SweepStats(NamedTuple):
@@ -83,13 +95,13 @@ def draw_uniforms(generator: torch.Generator, nc: int, ly: int, lx: int,
 
 
 def _sweep_rows(tps, config, uniforms, chi, trunc: TruncParams,
-                bots=None):
+                rule: UpdateRule = UpdateRule(), bots=None):
     """One pass over all horizontal bonds of every chain.
 
     tps [Ly, Lx, d, ...]; config [nc, Ly, Lx]; uniforms [nc, Ly, Lx-1];
     bots: optional bottom stack [nc, Ly+1, Lx, chi, D, chi] of the pre-sweep
     network. Returns (config', SweepStats) with device-side counts."""
-    ly, lx = tps.shape[0], tps.shape[1]
+    ly, lx, d = tps.shape[0], tps.shape[1], tps.shape[2]
     nc = config.shape[0]
     dtype, dev = tps.dtype, tps.device
     rdt = tps.real.dtype if tps.is_complex() else dtype
@@ -100,6 +112,7 @@ def _sweep_rows(tps, config, uniforms, chi, trunc: TruncParams,
                                      chi, trunc)
         bots = torch.flip(ftops, [-5])
     chains = torch.arange(nc, device=dev)
+    cmask = rule.mask_array(d, rdt, dev)
     top = bmps.init_boundary(lx, chi, tps.shape[3], dtype, dev, (nc,))
     l0 = bmps._unit_env(chi, tps.shape[3], dtype, dev, (nc,))
     acc = torch.zeros((), dtype=torch.int64, device=dev)
@@ -118,16 +131,26 @@ def _sweep_rows(tps, config, uniforms, chi, trunc: TruncParams,
                               bot[:, x, None])
             table = torch.einsum("nkABC,njABC->nkj", h1, rblks[:, x])
             c2 = cfg_row[:, x + 1]
-            psi_cur = table[chains, c_cur, c2]
-            psi_new = table[chains, c2, c_cur]
-            ratio2 = psi_new.abs() ** 2 / torch.clamp(psi_cur.abs() ** 2,
-                                                      min=tiny)
-            differ = c_cur != c2
-            accept = differ & (uniforms[:, y, x] < ratio2)
-            new1 = torch.where(accept, c2, c_cur)
-            new2 = torch.where(accept, c_cur, c2)
-            acc = acc + accept.sum()
-            tri = tri + differ.sum()
+            if rule.mode == "exchange":
+                psi_cur = table[chains, c_cur, c2]
+                psi_new = table[chains, c2, c_cur]
+                ratio2 = psi_new.abs() ** 2 / torch.clamp(psi_cur.abs() ** 2,
+                                                          min=tiny)
+                differ = c_cur != c2
+                accept = differ & (uniforms[:, y, x] < ratio2)
+                new1 = torch.where(accept, c2, c_cur)
+                new2 = torch.where(accept, c_cur, c2)
+                acc = acc + accept.sum()
+                tri = tri + differ.sum()
+            else:
+                cur_idx = c_cur * d + c2
+                w = table.reshape(nc, d * d).abs() ** 2
+                if cmask is not None:
+                    w = w * cmask[cur_idx]
+                new_idx = suwa_todo_pick(w, cur_idx, uniforms[:, y, x])
+                new1, new2 = new_idx // d, new_idx % d
+                acc = acc + (new_idx != cur_idx).sum()
+                tri = tri + nc
             lenv, _ = bmps._normalize(h1[chains, new1], 3)
             heads.append(new1)
             c_cur = new2
@@ -139,9 +162,10 @@ def _sweep_rows(tps, config, uniforms, chi, trunc: TruncParams,
 
 
 def mc_sweep(tps, tps_t, config, chi, trunc: TruncParams, uniforms=None,
-             generator: torch.Generator | None = None, bots=None):
-    """One full exchange sweep of every chain: horizontal bonds, then
-    vertical bonds on the transposed lattice (tps_t = transpose_tps(tps)).
+             generator: torch.Generator | None = None, bots=None,
+             rule: UpdateRule = UpdateRule()):
+    """One full sweep of every chain: horizontal bonds, then vertical bonds
+    on the transposed lattice (tps_t = transpose_tps(tps)).
 
     config [nc, Ly, Lx]; uniforms (u_h, u_v) or None to draw them from
     ``generator``; bots: optional bottom stack of the pre-sweep network.
@@ -152,7 +176,8 @@ def mc_sweep(tps, tps_t, config, chi, trunc: TruncParams, uniforms=None,
         uniforms = draw_uniforms(generator, config.shape[0], ly, lx, rdt,
                                  tps.device)
     u_h, u_v = uniforms
-    config, st_h = _sweep_rows(tps, config, u_h, chi, trunc, bots)
-    cfg_t, st_v = _sweep_rows(tps_t, config.transpose(1, 2), u_v, chi, trunc)
+    config, st_h = _sweep_rows(tps, config, u_h, chi, trunc, rule, bots)
+    cfg_t, st_v = _sweep_rows(tps_t, config.transpose(1, 2), u_v, chi, trunc,
+                              rule)
     return cfg_t.transpose(1, 2).contiguous(), SweepStats(
         st_h.accepted + st_v.accepted, st_h.trials + st_v.trials)

@@ -143,8 +143,8 @@ def test_wrapper_refuses_bad_operands_before_launch(monkeypatch, case):
         holes = _cuda_like(torch.zeros(3, 4, 4, 4))
     elif case == "psi_dtype":
         psi, err = _cuda_like(torch.ones(3, 4, dtype=torch.float64)), TypeError
-    elif case == "cfg_dtype":
-        cfg, err = _cuda_like(torch.zeros(3, 4, dtype=torch.int32)), TypeError
+    elif case == "cfg_dtype":       # any integer dtype is taken, not floats
+        cfg, err = _cuda_like(torch.zeros(3, 4, dtype=torch.float32)), TypeError
     elif case == "complex":
         holes, psi, cfg = _operands(3, 4, 16, dtype=torch.complex64)
         err = TypeError

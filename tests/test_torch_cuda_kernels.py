@@ -238,3 +238,124 @@ def test_complex_raises_on_cuda(dev):
     with pytest.raises(TypeError):
         k2.centered_o(x, x[..., 0], torch.zeros(2, 2, dtype=torch.int64,
                                                 device=dev), 2)
+
+
+def walker_operands(dev, dtype, gen, nc=32, ly=8, lx=8, chi=32, D=8):
+    """K1 operands of the S+S- walker (algorithm/measure.py) at the main
+    path's 8x8, D=8, chi=32, 32 chains: the start transfer (env: the left
+    envs of columns < Lx, a slice of [nc, Ly, Lx+1, ...]) and a column step
+    (walkers [nc, Ly, Lx(x1), ...]; top, bot and site broadcast over x1 as
+    slices of the env stacks and of the candidates)."""
+    def r(*shape):
+        return _r(gen, dev, dtype, *shape)
+    env = (chi, D, chi)
+    lefts = r(nc, ly, lx + 1, *env)
+    tops, bots = r(nc, ly + 1, lx, *env), r(nc, ly + 1, lx, *env)
+    sites = r(nc, ly, lx, D, D, D, D)
+    top, bot = tops[:, :ly], bots[:, 1:]
+    x = lx // 2
+    return {"start": (lefts[:, :, :lx], top, sites, bot),
+            "step": (r(nc, ly, lx, *env), top[:, :, x, None],
+                     sites[:, :, x, None], bot[:, :, x, None])}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("call", ["start", "step"])
+def test_col_transfer_walker_shapes(dev, dtype, call):
+    gen = torch.Generator(device=dev).manual_seed(21)
+    env, top, site, bot = walker_operands(dev, dtype, gen)[call]
+    before = k1.col_transfer.launches
+    out = k1.col_transfer(env, top, site, bot)
+    assert k1.col_transfer.launches == before + 1
+    assert out.shape == (32, 8, 8, 32, 8, 32)
+    assert _rel(out, k1.col_transfer_plain(env, top, site, bot)) <= TOL[dtype]
+
+
+def test_centered_o_int32_configurations_equal_int64(dev):
+    for dtype in (torch.float32, torch.float64):
+        holes, psi, cfg = _k2_operands(dev, dtype, 32, 64, 4096, 2, 9)
+        a = k2.centered_o(holes, psi, cfg, 2)
+        b = k2.centered_o(holes, psi, cfg.to(torch.int32), 2)
+        assert cfg.dtype == torch.int64 and torch.equal(a, b)
+    with pytest.raises(TypeError, match="integers"):
+        k2.centered_o(holes, psi, cfg.to(dtype), 2)
+
+
+def _measure_setup(device, ly=3, lx=3, D=3, chi=9, nc=4):
+    import numpy as np
+    from peps_tpu_torch.lattice import boundary_mask
+    rng = np.random.default_rng(3)
+    tps = torch.as_tensor(rng.standard_normal((ly, lx, 2) + (D,) * 4)
+                          * boundary_mask(ly, lx, 2, D), device=device)
+    base = np.array([0, 1] * (ly * lx // 2) + [0] * (ly * lx % 2))
+    cfg = torch.as_tensor(np.stack([rng.permutation(base).reshape(ly, lx)
+                                    for _ in range(nc)]), device=device)
+    return tps, cfg
+
+
+def test_measure_on_the_card_matches_the_cpu(dev):
+    """3x3, D=3, chi=9, f64, the same uniforms: the card's K1 sums in
+    another order than the CPU's einsums, so statistics agree to round-off
+    (1e-8 relative) and the Metropolis decisions, hence accept rate and
+    configurations, exactly."""
+    import numpy as np
+    from peps_tpu_torch.algorithm.measure import MeasurementParams, measure
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.montecarlo.sweep import UpdateRule, draw_uniforms
+    gen = torch.Generator().manual_seed(5)
+    uni = [draw_uniforms(gen, 4, 3, 3, torch.float64, "cpu")
+           for _ in range(2 + 4)]
+    params = MeasurementParams(num_samples=4, num_warmup_sweeps=2, nchains=4,
+                               chunk_size=3)
+    res = {}
+    for where in ("cpu", dev):
+        tps, cfg = _measure_setup(where)
+        it = iter([tuple(u.to(where) for u in pair) for pair in uni])
+        before = k1.col_transfer.launches
+        res[str(where)] = measure(
+            tps, spin.heisenberg(), params, 9,
+            TruncParams(9, 1, 1e-12, scheme="sketch"), UpdateRule(), cfg,
+            sweep_uniforms=lambda: next(it))
+        if where == dev:
+            assert k1.col_transfer.launches > before
+    a, b = res["cpu"], res[str(dev)]
+    assert a.accept_rate == b.accept_rate
+    for key, (m, e) in a.stats.items():
+        mb, eb = b.stats[key]
+        assert np.allclose(mb, m, rtol=1e-8, atol=1e-12), key
+        assert np.allclose(eb, e, rtol=1e-8, atol=1e-12), key
+
+
+@pytest.mark.parametrize("entry", ["vmc_optimize", "measure"])
+def test_complex_tps_on_the_card_raises_at_entry(dev, entry, monkeypatch):
+    """One NotImplementedError naming ROADMAP queue 2 item 1, before any
+    sweep and before any kernel launch."""
+    from peps_tpu_torch.algorithm import measure as measure_mod
+    from peps_tpu_torch.algorithm import vmc_optimize as vmc_mod
+    from peps_tpu_torch.algorithm.mc_evaluator import MCParams
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.montecarlo.sweep import UpdateRule
+    from peps_tpu_torch.optimizer.optimizer import OptimizerParams, SGDParams
+
+    def no_sweep(*args, **kwargs):
+        raise AssertionError("a sweep ran before the dtype check")
+    monkeypatch.setattr(vmc_mod, "mc_sweep", no_sweep)
+    monkeypatch.setattr(measure_mod, "mc_sweep", no_sweep)
+    tps, cfg = _measure_setup(dev)
+    tps = tps.to(torch.complex128)
+    trunc = TruncParams(9, 1, 1e-12, scheme="sketch")
+    before = k1.col_transfer.launches
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 2, item 1") as info:
+        if entry == "measure":
+            measure_mod.measure(tps, spin.heisenberg(),
+                                measure_mod.MeasurementParams(), 9, trunc,
+                                UpdateRule(), cfg)
+        else:
+            vmc_mod.vmc_optimize(tps, spin.heisenberg(), vmc_mod.VMCParams(
+                9, trunc, MCParams(nchains=4), OptimizerParams(1, SGDParams())),
+                configs=cfg)
+    assert entry in str(info.value) and "complex" in str(info.value)
+    assert k1.col_transfer.launches == before

@@ -86,3 +86,52 @@ def test_resolve_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         resolve_device(None)
+
+
+def _tiny_measure(tps, **kw):
+    from peps_tpu_torch.algorithm.measure import MeasurementParams, measure
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.montecarlo.sweep import UpdateRule
+    cfg = torch.tensor([[[0, 1], [1, 0]], [[1, 0], [0, 1]]])
+    return measure(tps, spin.heisenberg(), MeasurementParams(
+        num_samples=2, num_warmup_sweeps=1, nchains=2), 2,
+        TruncParams(2, 1, 1e-10, scheme="sketch"), UpdateRule(), cfg, **kw)
+
+
+def test_measure_runs_on_the_cpu_for_a_cpu_tps(no_cuda):
+    rng = np.random.default_rng(0)
+    from peps_tpu_torch.lattice import boundary_mask
+    tps = torch.as_tensor(rng.standard_normal((2, 2, 2, 2, 2, 2, 2))
+                          * boundary_mask(2, 2, 2, 2))
+    res = _tiny_measure(tps)
+    assert np.isfinite(res.stats["energy"][0])
+    assert set(res.stats) == {"energy", "sz", "szsz", "spsm_row", "spsm_col"}
+    assert res.psi_samples.shape == (2, 2)
+
+
+class _CudaLike(torch.Tensor):
+    """A CPU tensor that reports a CUDA device."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("entry", ["vmc_optimize", "measure"])
+def test_complex_tps_on_the_card_raises_at_entry(entry, monkeypatch):
+    """The error names the ROADMAP item and comes before any sweep."""
+    from peps_tpu_torch.algorithm import measure as measure_mod
+    from peps_tpu_torch.algorithm import vmc_optimize as vmc_mod
+
+    def no_sweep(*args, **kwargs):
+        raise AssertionError("a sweep ran before the dtype check")
+    monkeypatch.setattr(vmc_mod, "mc_sweep", no_sweep)
+    monkeypatch.setattr(measure_mod, "mc_sweep", no_sweep)
+    tps = torch.Tensor._make_subclass(
+        _CudaLike, torch.zeros(2, 2, 2, 1, 1, 1, 1, dtype=torch.complex128))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 1"):
+        if entry == "measure":
+            _tiny_measure(tps)
+        else:
+            from peps_tpu_torch.algorithm.vmc_optimize import vmc_optimize
+            vmc_optimize(tps, spin.heisenberg(), None)

@@ -42,3 +42,39 @@ def test_meta_cache_keys_on_dtype_and_broadcast():
     assert list(shared[1]) == _fresh(x, x, s, x)[1]
     assert list(per_item[1]) == list(shared[1])      # stride 0 either way
     assert list(single[1]) == list(shared[1])        # elements, not bytes
+
+
+def test_meta_of_the_walker_broadcast():
+    """The S+S- walker's column step (algorithm/measure.py): walkers
+    [nc, Ly, Lx, ...]; top, bot and site are column x of larger stacks,
+    broadcast over the start column. Three batch dims survive the merge
+    (nothing is contiguous across Ly in the sliced stacks); the broadcast
+    operands read the start-column dim with stride 0; a step at another
+    column has the same sizes and strides (its offset travels in the data
+    pointer), so it hits the same entry."""
+    k1._META_CACHE.clear()
+    nc, ly, lx, chi, D = 3, 2, 4, 5, 2
+    g = torch.Generator().manual_seed(1)
+    walkers = torch.randn(nc, ly, lx, chi, D, chi, generator=g)
+    tops = torch.randn(nc, ly + 1, lx, chi, D, chi, generator=g)
+    sites = torch.randn(nc, ly, lx, D, D, D, D, generator=g)
+    metas = []
+    for x in (1, 2):
+        ops = (walkers, tops[:, :ly, x, None], sites[:, :, x, None],
+               tops[:, 1:, x, None])
+        batch, meta = k1.launch_meta(*ops)
+        assert batch == (nc, ly, lx) and list(meta) == _fresh(*ops)[1]
+        # meta: 1 pad + 3 sizes, then per operand 1 pad + 3 batch strides
+        # + its own strides (3 legs, the site 4)
+        assert list(meta[:4]) == [1, nc, ly, lx]
+        starts = [4, 11, 18, 26]
+        strides = [list(meta[i + 1:i + 4]) for i in starts]
+        assert strides[0][2] == chi * D * chi
+        assert all(st[2] == 0 for st in strides[1:])
+        metas.append(list(meta))
+        out = k1.col_transfer(*ops)
+        assert torch.allclose(out, k1.col_transfer_plain(
+            walkers, ops[1].expand(nc, ly, lx, chi, D, chi),
+            ops[2].expand(nc, ly, lx, D, D, D, D),
+            ops[3].expand(nc, ly, lx, chi, D, chi)))
+    assert len(k1._META_CACHE) == 1 and metas[0] == metas[1]

@@ -1,6 +1,6 @@
-"""The port as a package: it runs without JAX, ships its kernel sources,
-and its kernel wrappers never fall back to the plain versions on a CUDA
-tensor."""
+"""The port as a package: it runs (a train step, then a measurement)
+without JAX, ships its kernel sources, and its kernel wrappers never fall
+back to the plain versions on a CUDA tensor."""
 import os
 import subprocess
 import sys
@@ -41,6 +41,12 @@ params = VMCParams(4, TruncParams(4, 1, 1e-8, scheme="sketch"),
                    occupancy=((0, 2), (1, 2)))
 res = vmc_optimize(tps, m, params, torch.Generator().manual_seed(0))
 assert np.isfinite(res.energies[0]), res.energies
+from peps_tpu_torch.algorithm.measure import MeasurementParams, measure
+from peps_tpu_torch.montecarlo.sweep import UpdateRule
+meas = measure(res.state, m, MeasurementParams(num_samples=2,
+                                               num_warmup_sweeps=1),
+               4, params.trunc, UpdateRule(), res.final_configs)
+assert np.isfinite(meas.stats["energy"][0]), meas.stats["energy"]
 leaked = sorted(k for k in sys.modules
                 if k == "peps_tpu" or k.startswith("peps_tpu.")
                 or (k.startswith("jax") and sys.modules[k] is not None))

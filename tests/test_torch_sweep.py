@@ -8,6 +8,8 @@ horizontal frame's key. Configurations must then agree exactly, and so
 must the acceptance counts. The sketch compression uses the reference's
 Gaussian blocks.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,9 +34,8 @@ def jax_blocks(monkeypatch):
     monkeypatch.setattr(tb, "sketch_blocks", jax_sketch_blocks)
 
 
-def jax_sweep_uniforms(chain_keys, ly, lx):
-    """(u_h [nc, Ly, Lx-1], u_v [nc, Lx, Ly-1]) that the reference's
-    mc_sweep draws from each chain key (montecarlo/sweep.py:119,142,173)."""
+@functools.cache
+def _uniforms_fn(ly, lx):
     def one(key):
         frames = []
         for rows, bonds in ((ly, lx - 1), (lx, ly - 1)):
@@ -48,7 +49,14 @@ def jax_sweep_uniforms(chain_keys, ly, lx):
                 us.append(jnp.stack(row))
             frames.append(jnp.stack(us))
         return tuple(frames)
-    u_h, u_v = jax.jit(jax.vmap(one))(chain_keys)
+    return jax.jit(jax.vmap(one))
+
+
+def jax_sweep_uniforms(chain_keys, ly, lx):
+    """(u_h [nc, Ly, Lx-1], u_v [nc, Lx, Ly-1]) that the reference's
+    mc_sweep draws from each chain key (montecarlo/sweep.py:119,142,173);
+    the same uniform drives the exchange and the Suwa-Todo rule."""
+    u_h, u_v = _uniforms_fn(ly, lx)(chain_keys)
     return torch.as_tensor(np.array(u_h)), torch.as_tensor(np.array(u_v))
 
 
@@ -110,8 +118,11 @@ def test_mc_sweep_with_bottom_stack_equals_fresh(jax_blocks):
 
 
 def test_suwa_todo_rule_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UpdateRule("suwa_todo")
+    """Suwa-Todo is ported (its parity tests are in test_torch_suwa_todo);
+    a rule the reference does not have still raises."""
+    assert UpdateRule("suwa_todo").mode == "suwa_todo"
+    with pytest.raises(ValueError, match="suwa_todo"):
+        UpdateRule("heat_bath")
 
 
 def test_engine_amplitudes_validity_and_normalization(jax_blocks):
