@@ -43,7 +43,24 @@ Phases, one line each (failures exit non-zero before the last line):
      dump_stats into a temporary directory. Checks: finite statistics,
      E/site in (-0.70, -0.40), |sum <Sz>| < 1e-5, negative nearest-
      neighbour <S+S-> in both frames, the bond sum within max(5 stderr,
-     3% |E|) of the E_loc energy, K1 launched, a CSV per statistic.
+     3% |E|) of the E_loc energy, K1 launched, a CSV per statistic;
+  6. the optimizers: vmc_optimize four times from the main path's state
+     and final configurations (8x8, D=8, chi=32, 32 chains, f32, exchange,
+     1 sample step per evaluation, no warm-up): (a) dense MinSR, cutoff
+     1e-8, 2 iterations; (b) Krylov MinSR, 16 Lanczos steps, 2
+     iterations; (c) Adam with CosineAnnealing, clip_norm, spike
+     detection with rollback, the step selector (3 energy-only probes at
+     step 0), a checkpoint per iteration, the trajectory CSV and the JSONL
+     log, 3 iterations; (d) L-BFGS with the strong-Wolfe search (at most 4
+     evaluations), 2 iterations. One line per run: energies per site,
+     eval/update/iteration seconds, evaluations per iteration (counted
+     through the sweep and probe uniform sources), spike events, K1 and K2
+     launches and peak device memory from the run's start. Then dense
+     against Krylov MinSR (m = Ns = 32) on one evaluation's buffers: in
+     float64 within 1e-8, in float32 printed. Checks: finite energies in
+     (-0.70, -0.40) per site, finite states, K1 launched in every run and
+     K2 in (a) and (b), run (c)'s 3 checkpoints equal to the states the
+     callback saw, its CSV with one header and 3 rows, its 3 JSONL records.
 Phase 2 also holds K1 at the walker's shape (2048 items, top, bot and site
 broadcast over the start column). The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}. Without a CUDA
@@ -67,6 +84,10 @@ WARMUP_SWEEPS = 2
 SR_ITERS = 3
 MEASURE_SAMPLES = 8
 MEASURE_CHUNK = 4
+MINSR_LR = 0.02            # phase 6 learning rates (the main path's SR: 0.05)
+ADAM_LR = 1e-4             # Adam moves every parameter by about lr at first
+ADAM_CLIP = 1.0
+LBFGS_LR = 1e-3            # the strong-Wolfe search's first trial step
 TOL = {"float32": 1e-5, "float64": 1e-12}
 HBM_BPS = 3.35e12          # H100 SXM device memory rate (data sheet)
 EINSUM_1CALL = "...alc,...auA,...uldr,...cdC->...ArC"
@@ -612,6 +633,216 @@ def phase_measure(res, device):
     return launches
 
 
+def _optimizer_runs(tmp):
+    """Phase 6's runs: (name, OptimizerParams) at the main path's width."""
+    from peps_tpu_torch.optimizer.optimizer import (AdamParams, LBFGSParams,
+                                                    MinSRParams,
+                                                    OptimizerParams,
+                                                    SpikeParams,
+                                                    StepSelectorParams)
+    from peps_tpu_torch.optimizer.schedulers import CosineAnnealing
+    return [
+        ("a_minsr_dense", OptimizerParams(
+            2, MinSRParams(pseudo_inverse_cutoff=1e-8), lr=MINSR_LR)),
+        ("b_minsr_krylov", OptimizerParams(
+            2, MinSRParams(pseudo_inverse_cutoff=1e-8, krylov_iters=16),
+            lr=MINSR_LR)),
+        ("c_adam", OptimizerParams(
+            3, AdamParams(), lr=CosineAnnealing(ADAM_LR, 3),
+            clip_norm=ADAM_CLIP,
+            spike=SpikeParams(enabled=True, enable_rollback=True),
+            step_selector=StepSelectorParams(), checkpoint_every=1,
+            checkpoint_path=os.path.join(tmp, "ckpt"),
+            trajectory_csv=os.path.join(tmp, "traj.csv"),
+            log_path=os.path.join(tmp, "log.jsonl"))),
+        ("d_lbfgs", OptimizerParams(
+            2, LBFGSParams(line_search="strong_wolfe", max_eval=4),
+            lr=LBFGS_LR)),
+    ]
+
+
+def optimizer_run(res, device, name, opt):
+    """One vmc_optimize call of phase 6 from the main path's state and
+    final configurations. Returns (record, states the callback saw)."""
+    import torch
+    from peps_tpu_torch.algorithm.mc_evaluator import MCParams
+    from peps_tpu_torch.algorithm.vmc_optimize import VMCParams, vmc_optimize
+    from peps_tpu_torch.kernels.centered_o import centered_o
+    from peps_tpu_torch.kernels.col_transfer import col_transfer
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.montecarlo.sweep import draw_uniforms
+
+    n = LY * LX
+    gen = torch.Generator(device=device).manual_seed(6)
+    sweeps = {"eval": 0, "probe": 0}
+
+    def source(kind):
+        def draw():
+            sweeps[kind] += 1
+            return draw_uniforms(gen, NCHAINS, LY, LX, torch.float32, device)
+        return draw
+
+    rows, states, seen = [], [], [0]
+
+    def on_iter(rec, state):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        total = sweeps["eval"] + sweeps["probe"]
+        rows.append({"rec": rec, "iter_s": now - stamp[0],
+                     "evals": total - seen[0], "probes": sweeps["probe"],
+                     "finite": bool(torch.isfinite(state).all())})
+        states.append(state.detach().cpu().numpy())
+        stamp[0], seen[0] = now, total
+
+    params = VMCParams(
+        CHI, TruncParams(CHI, 1, 1e-6, scheme="sketch"),
+        MCParams(num_samples=1, num_warmup_sweeps=0, nchains=NCHAINS), opt)
+    col_transfer.launches = 0
+    centered_o.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    stamp = [time.perf_counter()]
+    t0 = stamp[0]
+    out = vmc_optimize(res.state, spin.heisenberg(), params, gen,
+                       configs=res.final_configs,
+                       sweep_uniforms=source("eval"),
+                       probe_uniforms=source("probe"), callback=on_iter)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"col_transfer": col_transfer.launches,
+                "centered_o": centered_o.launches}
+    recs = [r["rec"] for r in rows]
+    record = {
+        "run": name, "algorithm": type(opt.algorithm).__name__,
+        "iterations": len(recs),
+        "energy_per_site": [r.energy / n for r in recs],
+        "energy_error_per_site": [r.energy_error / n for r in recs],
+        "grad_norm": [r.grad_norm for r in recs],
+        "natural_grad_norm": [r.natural_grad_norm for r in recs],
+        "lr": [r.lr for r in recs],
+        "accept_rate": [r.accept_rate for r in recs],
+        "eval_s": [r.eval_seconds for r in recs],
+        "update_s": [r.update_seconds for r in recs],
+        "iter_s": [r["iter_s"] for r in rows],
+        "evaluations_per_iteration": [r["evals"] for r in rows],
+        "probe_evaluations": sweeps["probe"],
+        "spike_events": [list(e) for e in out.spike_events],
+        "launches": launches,
+        "peak_mem_GB": torch.cuda.max_memory_allocated(device) / 1e9,
+        "wall_s": wall}
+    log("optimizers", **record)
+    e_site = record["energy_per_site"]
+    if len(recs) != opt.max_iters:
+        fail(f"optimizers {name}: {len(recs)} of {opt.max_iters} iterations")
+    if not all(math.isfinite(e) and -0.70 < e < -0.40 for e in e_site):
+        fail(f"optimizers {name}: energy per site {e_site} not finite in "
+             "(-0.70, -0.40)")
+    if not all(r["finite"] for r in rows) or \
+            not bool(torch.isfinite(out.state).all()):
+        fail(f"optimizers {name}: a state holds NaN or inf")
+    if launches["col_transfer"] == 0:
+        fail(f"optimizers {name}: K1 col_transfer was not launched")
+    if name.startswith(("a_", "b_")) and launches["centered_o"] == 0:
+        fail(f"optimizers {name}: K2 centered_o was not launched")
+    return record, states
+
+
+def check_files(tmp, states):
+    """Run (c)'s checkpoints, trajectory CSV and JSONL log."""
+    import numpy as np
+    ckpt = os.path.join(tmp, "ckpt")
+    names = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+    want = [f"state_step{k}.npy" for k in (1, 2, 3)]
+    if names != want:
+        fail(f"optimizers c_adam: checkpoints {names}, expected {want}")
+    for k, state in enumerate(states, start=1):
+        if not np.array_equal(np.load(os.path.join(ckpt, want[k - 1])),
+                              state):
+            fail(f"optimizers c_adam: {want[k - 1]} differs from the state "
+                 "the callback saw")
+    with open(os.path.join(tmp, "traj.csv")) as f:
+        lines = f.read().splitlines()
+    headers = sum(ln.startswith("step,") for ln in lines)
+    if headers != 1 or len(lines) != 4:
+        fail(f"optimizers c_adam: trajectory CSV has {headers} headers and "
+             f"{len(lines)} lines, expected 1 and 4")
+    with open(os.path.join(tmp, "log.jsonl")) as f:
+        records = [json.loads(ln) for ln in f.read().splitlines()]
+    if len(records) != 3:
+        fail(f"optimizers c_adam: {len(records)} JSONL records, expected 3")
+    return {"checkpoints": names, "csv_lines": len(lines),
+            "jsonl_records": len(records)}
+
+
+def minsr_paths(res, device):
+    """Dense against Krylov MinSR (m = Ns) on one evaluation's buffers at
+    the main path's width: float64 within 1e-8, float32 printed."""
+    import torch
+    from peps_tpu_torch.algorithm.energy import ModelTensors
+    from peps_tpu_torch.algorithm.mc_evaluator import MCParams, mc_energy_grad
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.montecarlo.sweep import draw_uniforms
+    from peps_tpu_torch.optimizer.krylov import minsr_krylov_natural_gradient
+    from peps_tpu_torch.optimizer.optimizer import (Evaluation, MinSRParams,
+                                                    minsr_natural_gradient)
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    mt = ModelTensors.from_model(spin.heisenberg(), res.state.dtype, device)
+    ev, _, _ = mc_energy_grad(
+        res.state, res.final_configs, mt, CHI,
+        TruncParams(CHI, 1, 1e-6, scheme="sketch"),
+        MCParams(num_samples=1, num_warmup_sweeps=0, nchains=NCHAINS),
+        lambda: draw_uniforms(gen, NCHAINS, LY, LX, torch.float32, device),
+        with_sr_buffers=True)
+    ns, p = ev.o_samples.shape
+    out = {"ns": ns, "p": p}
+    for tag, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        a, eps = ev.o_samples.to(dt), ev.e_samples.to(dt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense = minsr_natural_gradient(
+            Evaluation(ev.energy, ev.gradient, o_samples=a, e_samples=eps),
+            MinSRParams(pseudo_inverse_cutoff=1e-8), (p,))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        kry = minsr_krylov_natural_gradient(a, eps, 1e-8, ns, (p,))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        diff = ((kry - dense).norm() / dense.norm()).item()
+        out.update({f"{tag}_rel_diff": diff, f"{tag}_dense_s": t1 - t0,
+                    f"{tag}_krylov_s": t2 - t1,
+                    f"{tag}_finite": bool(torch.isfinite(dense).all()
+                                          and torch.isfinite(kry).all())})
+        del a, eps, dense, kry
+    gram = ev.o_samples @ ev.o_samples.mH
+    lam = torch.linalg.eigvalsh(gram.double())
+    out.update(gram_lam_min=lam.min().item(), gram_lam_max=lam.max().item())
+    log("minsr_paths", **out)
+    if not (out["f64_rel_diff"] < 1e-8) or not out["f64_finite"]:
+        fail(f"minsr_paths: Krylov (m = Ns) against dense in float64 "
+             f"{out['f64_rel_diff']} (finite {out['f64_finite']})")
+    if not out["f32_finite"]:
+        fail("minsr_paths: a float32 MinSR path is not finite")
+
+
+def phase_optimizers(res, device):
+    """Phase 6: the optimizers through vmc_optimize, then the two MinSR
+    paths against each other. Returns K1's and K2's launches over the four
+    runs."""
+    total = {"col_transfer": 0, "centered_o": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, opt in _optimizer_runs(tmp):
+            record, states = optimizer_run(res, device, name, opt)
+            for k, v in record["launches"].items():
+                total[k] += v
+            if name == "c_adam":
+                log("optimizer_files", **check_files(tmp, states))
+    minsr_paths(res, device)
+    return total
+
+
 def main():
     try:
         import torch
@@ -644,17 +875,22 @@ def main():
     res, launches = phase_main_path(device)
     phase_gate(res)
     launches_measure = phase_measure(res, device)
+    launches_opt = phase_optimizers(res, device)
 
     record = {"kernels": [
         {"name": "col_transfer", "route": "cuda",
          "source": "peps_tpu_torch/csrc/col_transfer.cu",
          "replaces": "peps_tpu/contraction/bmps.py:250",
          "launches": launches["col_transfer"],
-         "launches_measure": launches_measure, **kern["col_transfer"]},
+         "launches_measure": launches_measure,
+         "launches_optimizers": launches_opt["col_transfer"],
+         **kern["col_transfer"]},
         {"name": "centered_o", "route": "cuda",
          "source": "peps_tpu_torch/csrc/centered_o.cu",
          "replaces": "peps_tpu/algorithm/mc_evaluator.py:316",
-         "launches": launches["centered_o"], **kern["centered_o"]},
+         "launches": launches["centered_o"],
+         "launches_optimizers": launches_opt["centered_o"],
+         **kern["centered_o"]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,8 @@
 Per sample step: one sweep of every chain, then local energies and holes of
 every chain. The bottom env stacks built for the evaluation are handed to
 the next step's first sweep (the pre-sweep network is exactly the evaluated
-one), as in the reference. For SR the holes of all steps are kept and the
-centered, scaled sample matrix is written once by kernel K2; the
+one), as in the reference. For SR and MinSR the holes of all steps are
+kept and the centered, scaled sample matrix is written once by kernel K2; the
 un-centered O buffer is never formed. The reference's 1D flattening of the
 holes is a TPU tile-padding workaround and is not ported.
 """

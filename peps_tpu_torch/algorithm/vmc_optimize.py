@@ -4,11 +4,12 @@ validity rescue -> state normalization -> warm-up sweeps ->
 :func:`iterative_optimize` over :func:`mc_energy_grad`.
 
 Randomness comes from one ``torch.Generator`` on the state's device:
-configurations, the rescue donors and every sweep's uniforms. The parity
-tests replace the last with the reference's replayed uniforms
-(``sweep_uniforms``) and pass the reference's initial configurations.
-Open boundaries only: PBC (a ``bc`` field) and fermionic models come with
-ROADMAP queue 1, items 10-12.
+configurations, the rescue donors, every sweep's uniforms and the uniforms
+of the energy-only probes (step selector, Armijo line search). The parity
+tests replace the last two with the reference's replayed uniforms
+(``sweep_uniforms``, ``probe_uniforms``) and pass the reference's initial
+configurations. Open boundaries only: PBC (a ``bc`` field) and fermionic
+models come with ROADMAP queue 1, items 10-12.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from peps_tpu_torch.algorithm.energy import bosonic_model_tensors
-from peps_tpu_torch.algorithm.mc_evaluator import MCParams, mc_energy_grad
+from peps_tpu_torch.algorithm.mc_evaluator import (MCParams, mc_energy_grad,
+                                                   mc_energy_only)
 from peps_tpu_torch.device import require_real_on_card
 from peps_tpu_torch.lattice import transpose_tps
 from peps_tpu_torch.linalg import TruncParams
@@ -28,8 +30,8 @@ from peps_tpu_torch.montecarlo.engine import (ensure_validity,
                                               normalize_state_order1)
 from peps_tpu_torch.montecarlo.sweep import UpdateRule, draw_uniforms, \
     mc_sweep
-from peps_tpu_torch.optimizer.optimizer import (OptimizerParams, SRParams,
-                                                iterative_optimize)
+from peps_tpu_torch.optimizer.optimizer import (MinSRParams, OptimizerParams,
+                                                SRParams, iterative_optimize)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,20 +51,27 @@ class VMCResult(NamedTuple):
     lowest_energy: float
     records: list
     final_configs: torch.Tensor
+    spike_events: list = []     # (step, signal, action, value, threshold)
 
 
 def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
                  generator: torch.Generator | None = None,
                  configs: torch.Tensor | None = None,
                  sweep_uniforms: Callable[[], tuple] | None = None,
-                 callback=None) -> VMCResult:
+                 callback=None,
+                 probe_uniforms: Callable[[], tuple] | None = None
+                 ) -> VMCResult:
     """Optimize a real or complex OBC TPS for a bosonic model; a complex
     one runs on the CPU only (``device.require_real_on_card``).
 
     generator: a ``torch.Generator`` on tps.device (default: seeded 0).
     configs: optional initial configurations [nc, Ly, Lx] (default: drawn
     from params.occupancy). sweep_uniforms: optional callable returning each
-    sweep's uniforms (u_h, u_v) in order (default: drawn from generator)."""
+    sweep's uniforms (u_h, u_v) in order (default: drawn from generator).
+    probe_uniforms: the same for the sweeps of the energy-only probes
+    (default: drawn from generator; the reference keys probe n with
+    fold_in(sampler key, n) instead). A probe samples from the current
+    configurations and leaves them as they were."""
     require_real_on_card(tps, "vmc_optimize")
     ly, lx, d = tps.shape[0], tps.shape[1], tps.shape[2]
     dev = tps.device
@@ -72,12 +81,14 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
     mt = bosonic_model_tensors(model, tps.dtype, dev, "vmc_optimize")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    if sweep_uniforms is None:
-        rdt = tps.real.dtype if tps.is_complex() else tps.dtype
-        nc = params.mc.nchains if configs is None else configs.shape[0]
+    rdt = tps.real.dtype if tps.is_complex() else tps.dtype
+    nc = params.mc.nchains if configs is None else configs.shape[0]
 
-        def sweep_uniforms():
-            return draw_uniforms(generator, nc, ly, lx, rdt, dev)
+    def draw():
+        return draw_uniforms(generator, nc, ly, lx, rdt, dev)
+
+    sweep_uniforms = sweep_uniforms or draw
+    probe_uniforms = probe_uniforms or draw
 
     if configs is None:
         if params.occupancy is not None:
@@ -97,7 +108,8 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
                               uniforms=sweep_uniforms(), rule=params.rule)
 
     sampler = {"configs": configs}
-    needs_sr = isinstance(params.optimizer.algorithm, SRParams)
+    needs_sr = isinstance(params.optimizer.algorithm,
+                          (SRParams, MinSRParams))
 
     def evaluate(state, step):
         ev, cfgs, _ = mc_energy_grad(
@@ -107,8 +119,16 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
         sampler["configs"] = cfgs
         return ev
 
+    def evaluate_energy_only(state):
+        e, _ = mc_energy_only(state, sampler["configs"], mt, params.chi,
+                              params.trunc, params.rule,
+                              params.mc.num_samples, probe_uniforms,
+                              params.mc.sweeps_between_samples)
+        return e
+
     result = iterative_optimize(tps, evaluate, params.optimizer,
+                                evaluate_energy_only=evaluate_energy_only,
                                 callback=callback)
     return VMCResult(result.state, result.lowest_state, result.energies,
                      result.lowest_energy, result.records,
-                     sampler["configs"])
+                     sampler["configs"], result.spike_events)

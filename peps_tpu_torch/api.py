@@ -1,0 +1,48 @@
+"""One-call import surface of the port (port of ``peps_tpu/api.py``).
+
+It holds the names of the reference's ``__all__`` that the port has so
+far; later slices add the rest.
+"""
+from __future__ import annotations
+
+from peps_tpu_torch.algorithm.energy import ModelTensors
+from peps_tpu_torch.algorithm.exact_measure import exact_sum_measure
+from peps_tpu_torch.algorithm.exact_sum import (all_configs,
+                                                exact_sum_energy_gradient,
+                                                exact_sum_evaluation,
+                                                sector_configs)
+from peps_tpu_torch.algorithm.mc_evaluator import MCParams
+from peps_tpu_torch.algorithm.measure import (MeasurementParams,
+                                              MeasureResult, measure)
+from peps_tpu_torch.algorithm.registry import (Observable,
+                                               structure_factor_spsm_row)
+from peps_tpu_torch.algorithm.vmc_optimize import (VMCParams, VMCResult,
+                                                   vmc_optimize)
+from peps_tpu_torch.lattice import BoundaryCondition
+from peps_tpu_torch.linalg import TruncParams
+from peps_tpu_torch.models import spin
+from peps_tpu_torch.montecarlo.engine import (init_configs_occupancy,
+                                              init_configs_uniform)
+from peps_tpu_torch.montecarlo.sweep import UpdateRule
+from peps_tpu_torch.optimizer.optimizer import (AdaGradParams, AdamParams,
+                                                LBFGSParams, MinSRParams,
+                                                OptimizerParams, SGDParams,
+                                                SRParams)
+from peps_tpu_torch.peps import (PEPS, SimpleUpdateParams, product_peps,
+                                 simple_update, to_tps)
+from peps_tpu_torch.tps import load_tps, save_tps
+
+__all__ = [
+    "BoundaryCondition", "TruncParams", "UpdateRule",
+    "MCParams", "MeasurementParams", "MeasureResult", "measure",
+    "VMCParams", "VMCResult", "vmc_optimize",
+    "all_configs", "sector_configs", "exact_sum_evaluation",
+    "exact_sum_energy_gradient",
+    "init_configs_occupancy", "init_configs_uniform",
+    "SGDParams", "AdaGradParams", "AdamParams", "SRParams", "MinSRParams",
+    "LBFGSParams", "OptimizerParams",
+    "PEPS", "SimpleUpdateParams", "product_peps", "simple_update", "to_tps",
+    "save_tps", "load_tps",
+    "spin", "ModelTensors", "exact_sum_measure",
+    "Observable", "structure_factor_spsm_row",
+]

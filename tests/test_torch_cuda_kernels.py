@@ -359,3 +359,35 @@ def test_complex_tps_on_the_card_raises_at_entry(dev, entry, monkeypatch):
                 configs=cfg)
     assert entry in str(info.value) and "complex" in str(info.value)
     assert k1.col_transfer.launches == before
+
+
+@pytest.mark.parametrize("algo", ["minsr", "adam"])
+def test_vmc_optimize_minsr_and_adam_on_the_card(dev, algo):
+    """One iteration of dense MinSR (its sample matrix from K2) and of Adam
+    through vmc_optimize at 4x4, D=4, f32: finite energies and states, K1
+    launched in both, K2 for MinSR only."""
+    import numpy as np
+    from peps_tpu_torch.algorithm.mc_evaluator import MCParams
+    from peps_tpu_torch.algorithm.vmc_optimize import VMCParams, vmc_optimize
+    from peps_tpu_torch.lattice import boundary_mask
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.optimizer.optimizer import (AdamParams, MinSRParams,
+                                                    OptimizerParams)
+    rng = np.random.default_rng(8)
+    tps = torch.as_tensor(rng.standard_normal((4, 4, 2) + (4,) * 4)
+                          * boundary_mask(4, 4, 2, 4), dtype=torch.float32,
+                          device=dev)
+    alg = MinSRParams() if algo == "minsr" else AdamParams()
+    params = VMCParams(8, TruncParams(8, 1, 1e-8, scheme="sketch"),
+                       MCParams(num_samples=2, num_warmup_sweeps=1,
+                                nchains=8),
+                       OptimizerParams(1, alg, lr=1e-3),
+                       occupancy=((0, 8), (1, 8)))
+    b1, b2 = k1.col_transfer.launches, k2.centered_o.launches
+    res = vmc_optimize(tps, spin.heisenberg(), params,
+                       torch.Generator(device=dev).manual_seed(1))
+    assert np.isfinite(res.energies[0])
+    assert res.state.is_cuda and bool(torch.isfinite(res.state).all())
+    assert k1.col_transfer.launches > b1
+    assert (k2.centered_o.launches > b2) == (algo == "minsr")

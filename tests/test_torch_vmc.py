@@ -1,6 +1,8 @@
-"""One SR iteration of the whole slice (vmc_optimize) against the JAX
-package, in float64: same initial configurations, the reference's replayed
-sweep uniforms, the reference's sketch blocks. Energy, gradient-derived
+"""One iteration of the whole slice (vmc_optimize) against the JAX
+package, in float64, for SR, SGD, MinSR, Adam and SR with the step
+selector: same initial configurations, the reference's replayed sweep
+uniforms (and, for the step selector's energy-only probes, its replayed
+probe uniforms), the reference's sketch blocks. Energy, gradient-derived
 update and the final configurations must agree.
 
 Tolerance: energies 1e-10 relative; the updated TPS 1e-8 relative, because
@@ -26,16 +28,20 @@ from peps_tpu_torch.contraction import bmps as tb
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.models import spin
 from peps_tpu_torch.optimizer.cg import CGParams
-from peps_tpu_torch.optimizer.optimizer import (OptimizerParams, SGDParams,
-                                                SRParams)
+from peps_tpu_torch.optimizer import optimizer as t_opt
+from peps_tpu_torch.optimizer.optimizer import OptimizerParams
 from test_torch_bmps import jax_sketch_blocks, rel
 from test_torch_sweep import jax_sweep_uniforms, random_tps
 
 
-def jax_vmc_uniforms(key, nc, ly, lx, n_warm, n_sweeps):
+def jax_vmc_uniforms(key, nc, ly, lx, n_warm, n_sweeps, probes=0,
+                     probe_sweeps=0):
     """Every sweep's uniforms in the order the reference's vmc_optimize
     draws them: warm-up sweeps from split(split(key)[1], nc), then the
-    evaluator's sweeps from split(key, nc + 1)[1:]."""
+    evaluator's sweeps from split(key, nc + 1)[1:]. With probes, also the
+    uniforms of that many energy-only probes after the evaluator's sweeps:
+    probe n starts from fold_in(sampler key, n) and splits it like the
+    evaluator. Returns (sweep iterator, probe iterator)."""
     key, _, _ = jax.random.split(key, 3)
     out = []
     for _ in range(n_warm):
@@ -45,10 +51,28 @@ def jax_vmc_uniforms(key, nc, ly, lx, n_warm, n_sweeps):
         keys = jax.random.split(key, nc + 1)
         key = keys[0]
         out.append(jax_sweep_uniforms(keys[1:], ly, lx))
-    return iter(out)
+    probe = []
+    for n in range(1, probes + 1):
+        k = jax.random.fold_in(key, n)
+        for _ in range(probe_sweeps):
+            keys = jax.random.split(k, nc + 1)
+            k = keys[0]
+            probe.append(jax_sweep_uniforms(keys[1:], ly, lx))
+    return iter(out), iter(probe)
 
 
-@pytest.mark.parametrize("algo", ["sr", "sgd"])
+ALGOS = {
+    "sr": (lambda m, cg: m.SRParams(cg(20, 1e-10), diag_shift=1e-2), {}),
+    "sgd": (lambda m, cg: m.SGDParams(), {}),
+    "minsr": (lambda m, cg: m.MinSRParams(pseudo_inverse_cutoff=1e-8), {}),
+    "adam": (lambda m, cg: m.AdamParams(), {}),
+    "sr_step_selector": (
+        lambda m, cg: m.SRParams(cg(20, 1e-10), diag_shift=1e-2),
+        {"step_selector": "default"}),
+}
+
+
+@pytest.mark.parametrize("algo", sorted(ALGOS))
 def test_vmc_optimize_one_iteration_matches_reference(algo, monkeypatch):
     monkeypatch.setattr(tb, "sketch_blocks", jax_sketch_blocks)
     ly, lx, D, chi, nc = 2, 3, 2, 4, 4
@@ -58,28 +82,33 @@ def test_vmc_optimize_one_iteration_matches_reference(algo, monkeypatch):
     occ = ((0, 3), (1, 3))
     seed = jax.random.PRNGKey(4)
 
-    if algo == "sr":
-        j_alg = j_opt.SRParams(JCG(20, 1e-10), diag_shift=1e-2)
-        t_alg = SRParams(CGParams(20, 1e-10), diag_shift=1e-2)
-    else:
-        j_alg, t_alg = j_opt.SGDParams(), SGDParams()
+    make, extra = ALGOS[algo]
+    j_kw, t_kw = {}, {}
+    if extra.get("step_selector"):
+        j_kw["step_selector"] = j_opt.StepSelectorParams()
+        t_kw["step_selector"] = t_opt.StepSelectorParams()
+    n_probes = len(j_opt.StepSelectorParams().candidates) if j_kw else 0
     j_params = j_vmc.VMCParams(
         chi, JTrunc(chi, 1, 1e-12, scheme="sketch"),
         JMC(num_samples=n_samples, num_warmup_sweeps=n_warm, nchains=nc),
-        j_opt.OptimizerParams(1, j_alg, lr=0.05), occupancy=occ)
+        j_opt.OptimizerParams(1, make(j_opt, JCG), lr=0.05, **j_kw),
+        occupancy=occ)
     ref = j_vmc.vmc_optimize(jnp.asarray(tps), j_spin.heisenberg(), j_params,
                              seed)
 
     _, k_init, _ = jax.random.split(seed, 3)
     cfg0 = np.array(init_configs_occupancy(k_init, nc, ly, lx, dict(occ)))
-    uniforms = jax_vmc_uniforms(seed, nc, ly, lx, n_warm, n_samples)
+    uniforms, probes = jax_vmc_uniforms(seed, nc, ly, lx, n_warm, n_samples,
+                                        n_probes, n_samples)
     t_params = VMCParams(
         chi, TruncParams(chi, 1, 1e-12, scheme="sketch"),
         MCParams(num_samples=n_samples, num_warmup_sweeps=n_warm, nchains=nc),
-        OptimizerParams(1, t_alg, lr=0.05), occupancy=occ)
+        OptimizerParams(1, make(t_opt, CGParams), lr=0.05, **t_kw),
+        occupancy=occ)
     out = vmc_optimize(torch.as_tensor(tps), spin.heisenberg(), t_params,
                        configs=torch.as_tensor(cfg0),
-                       sweep_uniforms=lambda: next(uniforms))
+                       sweep_uniforms=lambda: next(uniforms),
+                       probe_uniforms=lambda: next(probes))
 
     assert abs(out.energies[0] - ref.energies[0]) < 1e-10 * abs(ref.energies[0])
     assert np.array_equal(out.final_configs.numpy(),
@@ -89,11 +118,23 @@ def test_vmc_optimize_one_iteration_matches_reference(algo, monkeypatch):
     assert abs(rec.grad_norm - jrec.grad_norm) < 1e-8 * jrec.grad_norm
     assert rec.sr_iters == jrec.sr_iters
     assert abs(rec.accept_rate - jrec.accept_rate) < 1e-6
+    assert rec.lr == pytest.approx(jrec.lr, rel=1e-12)
+    assert next(probes, None) is None     # every probe uniform was used
 
 
-def test_optimizer_rejects_unported_algorithms():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OptimizerParams(1, j_opt.AdamParams())
+def test_optimizer_rejects_unknown_algorithm():
+    """An object that is none of the six algorithms raises ValueError at
+    dispatch, as in the reference."""
+    state = torch.zeros(3, dtype=torch.float64)
+
+    def evaluate(s, step):
+        return t_opt.Evaluation(torch.zeros((), dtype=torch.float64),
+                                torch.ones(3, dtype=torch.float64))
+
+    for algo in (j_opt.AdamParams(), "adam", None):
+        with pytest.raises(ValueError, match="unknown algorithm"):
+            t_opt.iterative_optimize(state, evaluate,
+                                     OptimizerParams(1, algo))
 
 
 def test_cg_matches_reference_and_stops_on_device():
