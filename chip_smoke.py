@@ -61,8 +61,24 @@ Phases, one line each (failures exit non-zero before the last line):
      (-0.70, -0.40) per site, finite states, K1 launched in every run and
      K2 in (a) and (b), run (c)'s 3 checkpoints equal to the states the
      callback saw, its CSV with one header and 3 rows, its 3 JSONL records.
+  7. the long-range terms (j1j2), from the main path's state and final
+     configurations, each step with the launch counters at 0 and its own
+     seconds, launches and peak memory: the route check (the 32
+     configurations' local energies of j1j2_xxz(1, 1, 0, 0), whose vertical
+     bonds go through the two-row pair pass, against heisenberg(), whose
+     go through the transposed frame: mean within 1e-2 relative, the
+     largest single-configuration difference printed); two SR iterations
+     of vmc_optimize on j1j2_xxz(1, 1, 0.5, 0.5); measure() of that state
+     (8 samples in chunks of 4, no warm-up, no walkers), E/site in
+     (-0.60, -0.35); one energy-only evaluation each of
+     triangle_j1j2_heisenberg(1, 0.5) and of J1 plus 0.25 J1 on the
+     third neighbours in both directions. Checks: finite energies, K1, K2
+     and K3 launched.
 Phase 2 also holds K1 at the walker's shape (2048 items, top, bot and site
-broadcast over the start column). The line before the last is the kernels'
+broadcast over the start column), and K3 (pair_transfer) at the J1-J2
+path's two shapes: the BTen2 scan step (224 items) and the diagonal block
+(3136 items, a candidate axis), each against its plain version, one
+torch.einsum of the whole contraction and its FP32 or FP64 bound. The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}. Without a CUDA
 device it exits non-zero.
 """
@@ -91,6 +107,7 @@ LBFGS_LR = 1e-3            # the strong-Wolfe search's first trial step
 TOL = {"float32": 1e-5, "float64": 1e-12}
 HBM_BPS = 3.35e12          # H100 SXM device memory rate (data sheet)
 EINSUM_1CALL = "...alc,...auA,...uldr,...cdC->...ArC"
+EINSUM_K3 = "...amnc,...auA,...umdr,...dnef,...ceC->...ArfC"
 # K2 cases: (name, Ns, sites, K, dtypes, check on the first and last site
 # only). The stretch run is examples/stretch_heisenberg.py's 12x12 D=10 with
 # 32 chains x 8 samples; 16x16 D=12 at 256 samples is past 2^31 elements.
@@ -203,6 +220,97 @@ def k1_cases(dtype, device, gen):
     ]
 
 
+def k3_work(env, top, row1, row2, bot, out):
+    """(flops, bytes) of one K3 call on left-form operands: the four
+    products per item, each input read once (a broadcast operand once), the
+    output written once."""
+    na, nm, nn, nc = env.shape[-4:]
+    nu, nA = top.shape[-2:]
+    nd, nr = row1.shape[-2:]
+    ne, nf = row2.shape[-2:]
+    nC = bot.shape[-1]
+    items = math.prod(out.shape[:-4])
+    flops = 2 * items * (na * nm * nn * nc * nu * nA
+                         + nm * nn * nc * nA * nu * nd * nr
+                         + nn * nc * nA * nr * nd * ne * nf
+                         + nA * nr * nf * nc * ne * nC)
+    nbytes = sum(t.numel() for t in (env, top, row1, row2, bot, out)) \
+        * env.element_size()
+    return flops, nbytes
+
+
+def k3_cases(dtype, device, gen):
+    """K3 operands at the J1-J2 path's two shapes (8x8, D=8, chi=32, 32
+    chains, 7 row pairs, d=2): the BTen2 scan step of _pair_row_envs (224
+    items) and the diagonal block of _pair_pass (3136 items: env, top, row2
+    and bot broadcast over the candidate axis, the candidate sites over the
+    chains)."""
+    import torch
+    nc, pairs, nb, d = NCHAINS, LY - 1, LX - 1, PHYS
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=device, dtype=dtype)
+
+    two, env = (CHI, D, D, CHI), (CHI, D, CHI)
+    return [
+        ("env_step", r(nc, pairs, *two), r(nc, pairs, *env),
+         r(nc, pairs, D, D, D, D), r(nc, pairs, D, D, D, D),
+         r(nc, pairs, *env)),
+        ("diag_block", r(nc, pairs, nb, 1, *two), r(nc, pairs, nb, 1, *env),
+         r(pairs, nb, d, D, D, D, D), r(nc, pairs, nb, 1, D, D, D, D),
+         r(nc, pairs, nb, 1, *env)),
+    ]
+
+
+def k3_phase(device, peak, gen):
+    """K3 against its plain version and one torch.einsum of the whole
+    five-operand contraction, f32 and f64, at both main-path shapes.
+    Returns the f32 record at the diagonal block."""
+    import torch
+    from peps_tpu_torch.kernels import pair_transfer as k3
+    rec = {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.float64):
+        tol = TOL[str(dtype).split(".")[1]]
+        flop_rate = peak["fp32_flops" if dtype == torch.float32
+                         else "fp64_flops"]
+        for name, *ops in k3_cases(dtype, device, gen):
+            kern = lambda: k3.pair_transfer(*ops)
+            plain = lambda: k3.pair_transfer_plain(*ops)
+            one_call = lambda: torch.einsum(EINSUM_K3, *ops)
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            abs_err, rel = max_err(out, ref)
+            del ref
+            t = {k: [] for k in ("plain", "kern", "one")}
+            for k in ("plain", "kern", "one", "one", "kern", "plain"):
+                fn = {"plain": plain, "kern": kern, "one": one_call}[k]
+                t[k].append(time_ms(fn, 3))
+            ms, plain_ms, one_ms = (sum(t[k]) / 2
+                                    for k in ("kern", "plain", "one"))
+            flops, nbytes = k3_work(*ops, out)
+            bound_ms = max(flops / flop_rate, nbytes / HBM_BPS) * 1e3
+            bound_by = "operations" if flops / flop_rate >= nbytes / HBM_BPS \
+                else "bytes"
+            batch = tuple(out.shape[:-4])
+            log("kernels", kernel="pair_transfer", case=name,
+                dtype=str(dtype), batch=batch, items=math.prod(batch),
+                rel_err=rel, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                einsum_1call_ms=one_ms, flops=flops, bytes=nbytes,
+                bound_ms=bound_ms, bound_by=bound_by,
+                pct_of_bound=100 * bound_ms / ms,
+                plan=k3.pair_transfer_plan(*ops))
+            del out
+            torch.cuda.empty_cache()
+            if not (rel <= tol):
+                fail(f"pair_transfer {name} {dtype}: rel err {rel} > {tol}")
+            if dtype == torch.float32:
+                rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+                if name == "diag_block":
+                    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, library_ms=one_ms)
+    return rec
+
+
 def k1_host_us(k1, case, reps=400):
     """Host microseconds per K1 call (wrapper + launch, meta cache warm),
     host clock over reps calls with no synchronisation in between."""
@@ -220,8 +328,9 @@ def k1_host_us(k1, case, reps=400):
 
 
 def phase_kernels(device):
-    """Phase 2: K1 and K2 vs their plain versions (K1 also vs one einsum
-    call, K2 vs a copy of as many bytes), with their bounds. Returns
+    """Phase 2: K1, K2 and K3 vs their plain versions (K1 and K3 also vs
+    one einsum call, K2 vs a copy of as many bytes), with their bounds.
+    Returns
     per-kernel records (f32 numbers at the largest main-path shape)."""
     import torch
     from peps_tpu_torch.kernels import centered_o as k2
@@ -294,6 +403,7 @@ def phase_kernels(device):
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by="bytes", library_ms=None)
+    rec["pair_transfer"] = k3_phase(device, peak, gen)
     return rec
 
 
@@ -843,6 +953,151 @@ def phase_optimizers(res, device):
     return total
 
 
+def kernel_counts():
+    """The three wrappers' launch counters (K1, K2, K3)."""
+    from peps_tpu_torch.kernels.centered_o import centered_o
+    from peps_tpu_torch.kernels.col_transfer import col_transfer
+    from peps_tpu_torch.kernels.pair_transfer import pair_transfer
+    return {"col_transfer": col_transfer, "centered_o": centered_o,
+            "pair_transfer": pair_transfer}
+
+
+def j1j2_step(device, name, fn):
+    """Run one step of phase 7 with every launch counter at 0 and the peak
+    memory counter reset; log its seconds, launches and peak memory.
+    Returns (fn's result, launches)."""
+    import torch
+    kernels = kernel_counts()
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    log("j1j2", step=name, seconds=time.perf_counter() - t0,
+        launches=launches,
+        peak_mem_GB=torch.cuda.max_memory_allocated(device) / 1e9)
+    return out, launches
+
+
+def phase_j1j2(res, device):
+    """Phase 7: the long-range energy terms from the main path's state and
+    final configurations. Returns the launches summed over its steps."""
+    import torch
+    from peps_tpu_torch.algorithm.energy import (ModelTensors,
+                                                 local_energy_and_holes)
+    from peps_tpu_torch.algorithm.mc_evaluator import MCParams, mc_energy_only
+    from peps_tpu_torch.algorithm.measure import MeasurementParams, measure
+    from peps_tpu_torch.algorithm.vmc_optimize import VMCParams, vmc_optimize
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.montecarlo.sweep import UpdateRule, draw_uniforms
+    from peps_tpu_torch.optimizer.cg import CGParams
+    from peps_tpu_torch.optimizer.optimizer import OptimizerParams, SRParams
+
+    n = LY * LX
+    trunc = TruncParams(CHI, 1, 1e-6, scheme="sketch")
+    state, cfgs = res.state, res.final_configs
+    total = {k: 0 for k in kernel_counts()}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    def e_loc(model):
+        mt = ModelTensors.from_model(model, state.dtype, device)
+        return local_energy_and_holes(state, cfgs, mt, CHI, trunc,
+                                      with_holes=False).e_loc
+
+    # 1. the vertical bonds through the two-row sandwiches (pair pass)
+    # against the transposed frame, on the same configurations
+    e_pair, launches = j1j2_step(device, "route_pair",
+                                 lambda: e_loc(spin.j1j2_xxz(1, 1, 0, 0)))
+    add(launches)
+    e_t, launches = j1j2_step(device, "route_transposed",
+                              lambda: e_loc(spin.heisenberg()))
+    add(launches)
+    mean_rel = abs((e_pair.mean() - e_t.mean()) / e_t.mean()).item()
+    per_cfg = ((e_pair - e_t).abs() / e_t.abs().clamp(min=1e-12)).max().item()
+    log("j1j2", step="route_check", mean_rel_diff=mean_rel,
+        max_rel_diff_one_config=per_cfg, energy_per_site_pair=
+        e_pair.mean().item() / n, energy_per_site_transposed=
+        e_t.mean().item() / n)
+    if not (mean_rel < 1e-2) or not bool(torch.isfinite(e_pair).all()):
+        fail(f"j1j2 route check: mean E_loc differs by {mean_rel}")
+
+    # 2. two SR iterations at the maximally frustrated point
+    model = spin.j1j2_xxz(1, 1, 0.5, 0.5)
+    recs = []
+    params = VMCParams(
+        CHI, trunc, MCParams(num_samples=1, num_warmup_sweeps=0,
+                             nchains=NCHAINS),
+        OptimizerParams(2, SRParams(CGParams(30, 1e-5), diag_shift=1e-3),
+                        lr=0.05))
+    out, launches = j1j2_step(
+        device, "vmc_sr", lambda: vmc_optimize(
+            state, model, params, torch.Generator(device=device).manual_seed(8),
+            configs=cfgs, callback=lambda rec, st: recs.append(rec)))
+    add(launches)
+    e_site = [r.energy / n for r in recs]
+    log("j1j2", step="vmc_sr_records", energy_per_site=e_site,
+        eval_s=[r.eval_seconds for r in recs],
+        update_s=[r.update_seconds for r in recs],
+        sr_iters=[r.sr_iters for r in recs])
+    if len(recs) != 2 or not all(math.isfinite(e) for e in e_site) or \
+            not bool(torch.isfinite(out.state).all()):
+        fail(f"j1j2 vmc_optimize: energies {e_site}")
+
+    # 3. measure() on the optimized state
+    mp = MeasurementParams(num_samples=MEASURE_SAMPLES,
+                           num_warmup_sweeps=0, nchains=NCHAINS,
+                           chunk_size=MEASURE_CHUNK,
+                           measure_offdiag_corr=False)
+    meas, launches = j1j2_step(
+        device, "measure", lambda: measure(
+            out.state, model, mp, CHI, trunc, UpdateRule("exchange"),
+            out.final_configs,
+            generator=torch.Generator(device=device).manual_seed(9)))
+    add(launches)
+    e, e_err = (float(v) for v in meas.stats["energy"])
+    log("j1j2", step="measure_result", energy_per_site=e / n,
+        energy_stderr_per_site=e_err / n,
+        sampling_wall_s=meas.sampling_wall_s,
+        samples_per_s=NCHAINS * MEASURE_SAMPLES / meas.sampling_wall_s,
+        accept_rate=meas.accept_rate)
+    if not (math.isfinite(e) and -0.60 < e / n < -0.35):
+        fail(f"j1j2 measure: energy per site {e / n} outside (-0.60, -0.35)")
+
+    # 4-5. energy-only evaluations of the triangular J1-J2 model and of a
+    # model with third-neighbour couplings in both directions
+    hb = spin.heisenberg_bond()
+    tnn = spin.SquareLatticeModel(2, hb, hb, h_tnn_h=0.25 * hb,
+                                  h_tnn_v=0.25 * hb, name="j1_tnn")
+    gen = torch.Generator(device=device).manual_seed(10)
+    for name, m in (("triangle_j1j2", spin.triangle_j1j2_heisenberg(1, 0.5)),
+                    ("j1_tnn", tnn)):
+        mt = ModelTensors.from_model(m, state.dtype, device)
+        (energy, err), launches = j1j2_step(
+            device, f"energy_only_{name}", lambda: mc_energy_only(
+                state, cfgs, mt, CHI, trunc, UpdateRule("exchange"), 1,
+                lambda: draw_uniforms(gen, NCHAINS, LY, LX, state.dtype,
+                                      device)))
+        add(launches)
+        log("j1j2", step=f"energy_only_{name}_result",
+            energy_per_site=float(energy) / n,
+            energy_stderr_per_site=float(err) / n)
+        if not math.isfinite(float(energy)):
+            fail(f"j1j2 energy-only {name}: energy {float(energy)}")
+    log("j1j2", step="total", launches=total)
+    if total["pair_transfer"] == 0:
+        fail("j1j2: kernel pair_transfer was not launched")
+    if total["col_transfer"] == 0 or total["centered_o"] == 0:
+        fail(f"j1j2: a kernel was not launched: {total}")
+    return total
+
+
 def main():
     try:
         import torch
@@ -876,6 +1131,7 @@ def main():
     phase_gate(res)
     launches_measure = phase_measure(res, device)
     launches_opt = phase_optimizers(res, device)
+    launches_j1j2 = phase_j1j2(res, device)
 
     record = {"kernels": [
         {"name": "col_transfer", "route": "cuda",
@@ -884,13 +1140,20 @@ def main():
          "launches": launches["col_transfer"],
          "launches_measure": launches_measure,
          "launches_optimizers": launches_opt["col_transfer"],
+         "launches_j1j2": launches_j1j2["col_transfer"],
          **kern["col_transfer"]},
         {"name": "centered_o", "route": "cuda",
          "source": "peps_tpu_torch/csrc/centered_o.cu",
          "replaces": "peps_tpu/algorithm/mc_evaluator.py:316",
          "launches": launches["centered_o"],
          "launches_optimizers": launches_opt["centered_o"],
+         "launches_j1j2": launches_j1j2["centered_o"],
          **kern["centered_o"]},
+        {"name": "pair_transfer", "route": "cuda",
+         "source": "peps_tpu_torch/csrc/pair_transfer.cu",
+         "replaces": "peps_tpu/algorithm/energy.py:132",
+         "launches": launches_j1j2["pair_transfer"],
+         **kern["pair_transfer"]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from peps_tpu_torch.algorithm.energy import (_local_energy,
-                                             bosonic_model_tensors)
+                                             bosonic_model_tensors,
+                                             needs_transposed_frame)
 from peps_tpu_torch.algorithm.registry import MeasureContext, spin_registry
 from peps_tpu_torch.contraction import bmps
 from peps_tpu_torch.device import require_real_on_card
@@ -164,7 +165,8 @@ def _sample_outputs(tps, tps_t, cfgs, mt, chi, trunc, registry, params):
     bottom stack of cfgs, which the next step's first sweep starts from."""
     cheap = [ob for ob in registry if not ob.needs_envs]
     walkers = [ob for ob in registry if ob.needs_envs]
-    with_t = mt.h_v is not None or any(ob.uses_stacks_t for ob in walkers)
+    with_t = needs_transposed_frame(mt) or any(ob.uses_stacks_t
+                                               for ob in walkers)
     outs = {"energy": [], "log_abs_psi": []}
     outs.update({ob.key: [] for ob in registry})
     stacks_all, stacks_t_all = [], []

@@ -382,3 +382,26 @@ def replace_nn_site_traces(envs: RowEnvs, top: torch.Tensor, bot: torch.Tensor,
     t2 = col_transfer_right(sl(envs.rights, 2, lx + 1), sl(top, 1, lx), cand2,
                             sl(bot, 1, lx))
     return torch.einsum("...kalc,...jalc->...kj", t1, t2)
+
+
+def replace_tnn_site_traces(envs: RowEnvs, top: torch.Tensor,
+                            bot: torch.Tensor, cand1: torch.Tensor,
+                            mid: torch.Tensor, cand2: torch.Tensor):
+    """psi mantissas with the in-row third-neighbour pair (x, x+2) replaced
+    by candidate pairs and the middle site x+1 unchanged. cand1/cand2
+    [..., Lx-2, K, u, l, d, r], mid [..., Lx-2, u, l, d, r] (row[x+1]) ->
+    [..., Lx-2, K1, K2]. Every transfer is a K1 launch batched over (bond,
+    candidate)."""
+    lx = top.shape[-4]
+    nb = lx - 2
+
+    def sl(t, a, b):   # columns a..b-1, plus a candidate axis
+        return t[..., a:b, :, :, :].unsqueeze(-4)
+
+    t1 = col_transfer(sl(envs.lefts, 0, nb), sl(top, 0, nb), cand1,
+                      sl(bot, 0, nb))
+    t1 = col_transfer(t1, sl(top, 1, nb + 1), mid.unsqueeze(-5),
+                      sl(bot, 1, nb + 1))
+    t2 = col_transfer_right(sl(envs.rights, 3, lx + 1), sl(top, 2, lx), cand2,
+                            sl(bot, 2, lx))
+    return torch.einsum("...kalc,...jalc->...kj", t1, t2)

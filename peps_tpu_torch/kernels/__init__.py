@@ -2,5 +2,7 @@
 
 K1 ``col_transfer`` (CUDA C++, ``csrc/col_transfer.cu``): the BTen column
 transfer. K2 ``centered_o`` (CUDA C++, ``csrc/centered_o.cu``): the
-centered SR sample matrix.
+centered SR sample matrix. K3 ``pair_transfer`` (CUDA C++,
+``csrc/pair_transfer.cu``): the two-row (BTen2) column transfer of the
+pair passes.
 """

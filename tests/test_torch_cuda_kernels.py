@@ -12,6 +12,7 @@ import torch
 
 from peps_tpu_torch.kernels import centered_o as k2
 from peps_tpu_torch.kernels import col_transfer as k1
+from peps_tpu_torch.kernels import pair_transfer as k3
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -391,3 +392,78 @@ def test_vmc_optimize_minsr_and_adam_on_the_card(dev, algo):
     assert res.state.is_cuda and bool(torch.isfinite(res.state).all())
     assert k1.col_transfer.launches > b1
     assert (k2.centered_o.launches > b2) == (algo == "minsr")
+
+
+def pair_operands(dev, dtype, gen, case):
+    """K3 operands: "small" (chi 5, D 2, c 7: partial chunks and A tiles),
+    or the main path's two shapes at 8x8, D=8, chi=32, 32 chains: "env_step"
+    (the BTen2 scan step of energy._pair_row_envs, 32 x 7 row pairs) and
+    "diag_block" (the diagonal block, 32 x 7 x 7 bonds x 2 candidates, with
+    env, top, row2 and bot broadcast over the candidate axis and the
+    candidate sites shared by the chains)."""
+    def r(*shape):
+        return _r(gen, dev, dtype, *shape)
+    if case == "small":
+        chi, D, c = 5, 2, 7
+        return (r(3, chi, D, D, c), r(3, chi, D, chi), r(D, D, D, D),
+                r(3, D, D, D, D), r(c, D, c))
+    chi, D, nc, pairs, lx, d = 32, 8, 32, 7, 8, 2
+    if case == "env_step":
+        return (r(nc, pairs, chi, D, D, chi), r(nc, pairs, chi, D, chi),
+                r(nc, pairs, D, D, D, D), r(nc, pairs, D, D, D, D),
+                r(nc, pairs, chi, D, chi))
+    nb = lx - 1
+    return (r(nc, pairs, nb, 1, chi, D, D, chi), r(nc, pairs, nb, 1, chi, D,
+                                                     chi),
+            r(pairs, nb, d, D, D, D, D), r(nc, pairs, nb, 1, D, D, D, D),
+            r(nc, pairs, nb, 1, chi, D, chi))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["small", "env_step", "diag_block"])
+def test_pair_transfer_left_and_right(dev, dtype, case):
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    ops = pair_operands(dev, dtype, gen, case)
+    before = k3.pair_transfer.launches
+    out = k3.pair_transfer(*ops)
+    assert k3.pair_transfer.launches == before + 1
+    assert _rel(out, k3.pair_transfer_plain(*ops)) <= TOL[dtype]
+    out = k3.pair_transfer_right(*ops)
+    ref = k3.pair_transfer_right(*ops, transfer=k3.pair_transfer_plain)
+    assert _rel(out, ref) <= TOL[dtype]
+    assert k3.pair_transfer.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pair_transfer_stride0_broadcasts(dev, dtype):
+    """env, top and bot shared by every candidate (stride 0 on that axis),
+    row1 the candidates, row2 shared by the whole batch; equal to the
+    plain version on materialized copies."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    chi, D, nb, d = 12, 3, 4, 3
+    env = _r(gen, dev, dtype, nb, 1, chi, D, D, chi)
+    top = _r(gen, dev, dtype, nb, 1, chi, D, chi)
+    row1 = _r(gen, dev, dtype, nb, d, D, D, D, D)
+    row2 = _r(gen, dev, dtype, D, D, D, D)
+    bot = _r(gen, dev, dtype, nb, 1, chi, D, chi)
+    out = k3.pair_transfer(env, top, row1, row2, bot)
+    full = (env.expand(nb, d, chi, D, D, chi), top.expand(nb, d, chi, D, chi),
+            row1, row2.expand(nb, d, D, D, D, D),
+            bot.expand(nb, d, chi, D, chi))
+    full = [x.contiguous() for x in full]
+    assert out.shape == (nb, d, chi, D, D, chi)
+    assert _rel(out, k3.pair_transfer_plain(*full)) <= TOL[dtype]
+
+
+def test_pair_transfer_raises_on_complex_and_unplannable(dev):
+    x = torch.zeros(2, 2, 2, 2, dtype=torch.complex64, device=dev)
+    t3 = torch.zeros(2, 2, 2, dtype=torch.complex64, device=dev)
+    with pytest.raises(TypeError, match="complex"):
+        k3.pair_transfer(x, t3, x, x, t3)
+    before = k3.pair_transfer.launches
+    big = torch.zeros(48, 12, 12, 48, dtype=torch.float64, device=dev)
+    top = torch.zeros(48, 12, 48, dtype=torch.float64, device=dev)
+    site = torch.zeros(12, 12, 12, 12, dtype=torch.float64, device=dev)
+    with pytest.raises(RuntimeError):       # no plan fits shared memory
+        k3.pair_transfer(big, top, site, site, top)
+    assert k3.pair_transfer.launches == before

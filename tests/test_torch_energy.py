@@ -60,16 +60,6 @@ def test_local_energy_and_holes(scheme, ly, lx, jax_blocks):
     assert rel(out.log_abs_psi, ref.log_abs_psi) < RTOL
 
 
-def test_energy_terms_not_ported_raise():
-    tps, cfgs = _setup(2, 3, 1, 1)
-    model = j_spin.triangle_heisenberg()
-    mt = energy.ModelTensors.from_model(model, torch.float64, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        energy.local_energy_and_holes(torch.as_tensor(tps),
-                                      torch.as_tensor(cfgs), mt, 4,
-                                      TruncParams(4, scheme="sketch"))
-
-
 def _jax_center_scale(holes, psi, cfg, d):
     """The reference's O build (energy.py:112-116) + stack + _center_scale."""
     ns = holes.shape[0]

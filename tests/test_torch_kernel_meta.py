@@ -1,9 +1,10 @@
-"""K1's launch meta cache (kernels/col_transfer.py:launch_meta), on the CPU:
-one entry per (shapes, strides, dtype, device) signature, each equal to a
-fresh _meta(...)."""
+"""K1's and K3's launch meta caches (kernels/col_transfer.py and
+kernels/pair_transfer.py:launch_meta), on the CPU: one entry per (shapes,
+strides, dtype, device) signature, each equal to a fresh _meta(...)."""
 import torch
 
 from peps_tpu_torch.kernels import col_transfer as k1
+from peps_tpu_torch.kernels import pair_transfer as k3
 
 
 def _fresh(env, top, site, bot):
@@ -78,3 +79,43 @@ def test_meta_of_the_walker_broadcast():
             ops[2].expand(nc, ly, lx, D, D, D, D),
             ops[3].expand(nc, ly, lx, chi, D, chi)))
     assert len(k1._META_CACHE) == 1 and metas[0] == metas[1]
+
+
+def test_pair_transfer_meta_of_the_diagonal_block():
+    """K3's diagonal block (algorithm/energy.py:_pair_pass): chains, row
+    pairs, bonds and a candidate axis. env, top, row2 and bot are column
+    slices of the stacks with a size-1 candidate axis (stride 0 after the
+    broadcast); the candidate sites have no chain axis (stride 0 there).
+    The right form's permuted views are a second entry; a repeat call hits
+    the cache."""
+    k3._META_CACHE.clear()
+    nc, pairs, lx, chi, D, d = 3, 2, 4, 5, 2, 2
+    g = torch.Generator().manual_seed(2)
+    lefts = torch.randn(nc, pairs, lx + 1, chi, D, D, chi, generator=g)
+    tops = torch.randn(nc, pairs, lx, chi, D, chi, generator=g)
+    rows = torch.randn(nc, pairs, lx, D, D, D, D, generator=g)
+    cands = torch.randn(pairs, lx, d, D, D, D, D, generator=g)
+    nb = lx - 1
+    ops = (lefts[:, :, :nb].unsqueeze(-5), tops[:, :, :nb].unsqueeze(-4),
+           cands[:, :nb], rows[:, :, :nb].unsqueeze(-5),
+           tops[:, :, :nb].unsqueeze(-4))
+    batch, meta = k3.launch_meta(*ops)
+    assert batch == (nc, pairs, nb, d)
+    assert list(meta) == k3._meta(ops, batch)
+    assert list(meta[:4]) == [nc, pairs, nb, d]
+    # per operand: 4 batch strides then its own (env 4, top 3, rows 4, bot 3)
+    starts, own = [4], (4, 3, 4, 4, 3)
+    for k in own[:-1]:
+        starts.append(starts[-1] + 4 + k)
+    bstrides = [list(meta[i:i + 4]) for i in starts]
+    assert [b[3] for b in bstrides] == [0, 0, D ** 4, 0, 0]   # candidates
+    assert bstrides[2][0] == 0                                # no chain axis
+    assert list(meta[-11:]) == [chi, D, D, chi, D, chi, D, D, D, D, chi]
+    assert k3.launch_meta(*ops) is k3.launch_meta(*ops)
+    right = (ops[0],) + tuple(o.transpose(-3, -1) for o in ops[1:])
+    k3.launch_meta(*right)
+    assert len(k3._META_CACHE) == 2
+    assert torch.allclose(
+        k3.pair_transfer(*ops),
+        k3.pair_transfer_plain(*(o.expand(*batch, *o.shape[-k:])
+                                 for o, k in zip(ops, own))))

@@ -12,6 +12,7 @@ import torch
 import peps_tpu_torch
 from peps_tpu_torch.kernels import centered_o as k2
 from peps_tpu_torch.kernels import col_transfer as k1
+from peps_tpu_torch.kernels import pair_transfer as k3
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -75,7 +76,10 @@ def test_kernel_sources_ship_in_csrc():
     for name, symbols in (("col_transfer.cu", ("col_transfer_f32",
                                                "col_transfer_f64")),
                           ("centered_o.cu", ("centered_o_f32",
-                                             "centered_o_f64"))):
+                                             "centered_o_f64")),
+                          ("pair_transfer.cu", ("pair_transfer_f32",
+                                                "pair_transfer_f64",
+                                                "pair_transfer_plan"))):
         text = (REPO / "peps_tpu_torch" / "csrc" / name).read_text()
         assert 'extern "C"' in text and all(s in text for s in symbols)
     k2_text = (REPO / "peps_tpu_torch" / "kernels" / "centered_o.py") \
@@ -134,12 +138,34 @@ def test_centered_o_launches_or_raises_on_cuda(monkeypatch):
     assert k2.centered_o.launches == before
 
 
+def test_pair_transfer_launches_or_raises_on_cuda(monkeypatch):
+    monkeypatch.setattr(k3, "pair_transfer_plain", _no_plain)
+    env = _cuda_like(4, 2, 2, 4)
+    top = _cuda_like(4, 2, 4)
+    row = _cuda_like(2, 2, 2, 2)
+    before = k3.pair_transfer.launches
+    with pytest.raises((RuntimeError, OSError)):
+        k3.pair_transfer(env, top, row, row, top)
+    assert k3.pair_transfer.launches == before
+    with pytest.raises(TypeError, match="complex"):
+        c = torch.complex64
+        k3.pair_transfer(_cuda_like(4, 2, 2, 4, dtype=c),
+                         _cuda_like(4, 2, 4, dtype=c),
+                         _cuda_like(2, 2, 2, 2, dtype=c),
+                         _cuda_like(2, 2, 2, 2, dtype=c),
+                         _cuda_like(4, 2, 4, dtype=c))
+
+
 def test_plain_versions_on_cpu_count_no_launch():
-    before1, before2 = k1.col_transfer.launches, k2.centered_o.launches
+    before = (k1.col_transfer.launches, k2.centered_o.launches,
+              k3.pair_transfer.launches)
     x = torch.ones(3, 2, 3, dtype=torch.float64)
-    k1.col_transfer(x, x, torch.ones(2, 2, 2, 2, dtype=torch.float64), x)
+    site = torch.ones(2, 2, 2, 2, dtype=torch.float64)
+    k1.col_transfer(x, x, site, x)
     k2.centered_o(torch.ones(2, 1, 4, dtype=torch.float64),
                   torch.ones(2, 1, dtype=torch.float64),
                   torch.zeros(2, 1, dtype=torch.int64), 2)
-    assert (k1.col_transfer.launches, k2.centered_o.launches) == \
-        (before1, before2)
+    k3.pair_transfer(torch.ones(3, 2, 2, 3, dtype=torch.float64), x, site,
+                     site, x)
+    assert (k1.col_transfer.launches, k2.centered_o.launches,
+            k3.pair_transfer.launches) == before
