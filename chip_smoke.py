@@ -76,11 +76,16 @@ Phases, one line each (failures exit non-zero before the last line):
      and K3 launched.
 Phase 2 also holds K1 at the walker's shape (2048 items, top, bot and site
 broadcast over the start column), and K3 (pair_transfer) at the J1-J2
-path's two shapes: the BTen2 scan step (224 items) and the diagonal block
-(3136 items, a candidate axis), each against its plain version, one
-torch.einsum of the whole contraction and its FP32 or FP64 bound. The line before the last is the kernels'
-JSON record; the last line is {"ok": true, "device": {...}}. Without a CUDA
-device it exits non-zero.
+path's shapes and forms: the BTen2 scan step (224 items) in the left and
+the right form, and the 3136-item blocks of the pair pass with a candidate
+axis: the diagonal's lblk (left form, candidates on row1) and rblk (right
+form, candidates on row2) and the anti-diagonal's lblk (left form,
+candidates on row2). Each K3 case is held to its plain version and timed
+beside it, one torch.einsum of the whole contraction and its FP32 or FP64
+bound, with the launch plan and what the compiled kernel reaches there
+(registers a thread, spill bytes, CTAs an SM). The line before the last is
+the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
+Without a CUDA device it exits non-zero.
 """
 import json
 import math
@@ -240,11 +245,14 @@ def k3_work(env, top, row1, row2, bot, out):
 
 
 def k3_cases(dtype, device, gen):
-    """K3 operands at the J1-J2 path's two shapes (8x8, D=8, chi=32, 32
-    chains, 7 row pairs, d=2): the BTen2 scan step of _pair_row_envs (224
-    items) and the diagonal block of _pair_pass (3136 items: env, top, row2
-    and bot broadcast over the candidate axis, the candidate sites over the
-    chains)."""
+    """K3 operands at the J1-J2 path's shapes (8x8, D=8, chi=32, 32 chains,
+    7 row pairs, d=2), as (name, form, env, top, row1, row2, bot): the
+    BTen2 scan step of _pair_row_envs (224 items) in both forms, and the
+    blocks of _pair_pass (3136 items: env, top, bot and the unchanged row
+    broadcast over the candidate axis, the candidate sites over the chains):
+    the diagonal's lblk (left form, candidates on row1) and rblk (right
+    form, candidates on row2), and the anti-diagonal's lblk (left form,
+    candidates on row2); energy.py's lblk/rblk calls."""
     import torch
     nc, pairs, nb, d = NCHAINS, LY - 1, LX - 1, PHYS
 
@@ -252,20 +260,39 @@ def k3_cases(dtype, device, gen):
         return torch.randn(*shape, generator=gen, device=device, dtype=dtype)
 
     two, env = (CHI, D, D, CHI), (CHI, D, CHI)
-    return [
-        ("env_step", r(nc, pairs, *two), r(nc, pairs, *env),
-         r(nc, pairs, D, D, D, D), r(nc, pairs, D, D, D, D),
-         r(nc, pairs, *env)),
-        ("diag_block", r(nc, pairs, nb, 1, *two), r(nc, pairs, nb, 1, *env),
-         r(pairs, nb, d, D, D, D, D), r(nc, pairs, nb, 1, D, D, D, D),
-         r(nc, pairs, nb, 1, *env)),
-    ]
+    site = (D, D, D, D)
+
+    def step():
+        return (r(nc, pairs, *two), r(nc, pairs, *env), r(nc, pairs, *site),
+                r(nc, pairs, *site), r(nc, pairs, *env))
+
+    def block(cands_on):
+        rows = [r(nc, pairs, nb, 1, *site), r(pairs, nb, d, *site)]
+        row1, row2 = rows if cands_on == 2 else rows[::-1]
+        return (r(nc, pairs, nb, 1, *two), r(nc, pairs, nb, 1, *env), row1,
+                row2, r(nc, pairs, nb, 1, *env))
+
+    return [("env_step", "left", *step()),
+            ("env_step_right", "right", *step()),
+            ("diag_block", "left", *block(1)),
+            ("diag_block_right", "right", *block(2)),
+            ("antidiag_block", "left", *block(2))]
+
+
+def k3_views(form, ops):
+    """The left-form operands a K3 call of this form computes on."""
+    if form == "left":
+        return tuple(ops)
+    env, *rest = ops
+    return (env, *(o.transpose(-3, -1) for o in rest))
 
 
 def k3_phase(device, peak, gen):
     """K3 against its plain version and one torch.einsum of the whole
-    five-operand contraction, f32 and f64, at both main-path shapes.
-    Returns the f32 record at the diagonal block."""
+    five-operand contraction, f32 and f64, at every case of k3_cases, with
+    the plan each launch takes and what the compiled kernel reaches there
+    (registers a thread, spill bytes, CTAs an SM). Returns the f32 record
+    at the diagonal block."""
     import torch
     from peps_tpu_torch.kernels import pair_transfer as k3
     rec = {"max_abs_err": 0.0}
@@ -273,10 +300,11 @@ def k3_phase(device, peak, gen):
         tol = TOL[str(dtype).split(".")[1]]
         flop_rate = peak["fp32_flops" if dtype == torch.float32
                          else "fp64_flops"]
-        for name, *ops in k3_cases(dtype, device, gen):
-            kern = lambda: k3.pair_transfer(*ops)
-            plain = lambda: k3.pair_transfer_plain(*ops)
-            one_call = lambda: torch.einsum(EINSUM_K3, *ops)
+        for name, form, *ops in k3_cases(dtype, device, gen):
+            views = k3_views(form, ops)
+            kern = lambda: k3.pair_transfer(*views)
+            plain = lambda: k3.pair_transfer_plain(*views)
+            one_call = lambda: torch.einsum(EINSUM_K3, *views)
             out, ref = kern(), plain()
             torch.cuda.synchronize()
             abs_err, rel = max_err(out, ref)
@@ -287,18 +315,21 @@ def k3_phase(device, peak, gen):
                 t[k].append(time_ms(fn, 3))
             ms, plain_ms, one_ms = (sum(t[k]) / 2
                                     for k in ("kern", "plain", "one"))
-            flops, nbytes = k3_work(*ops, out)
+            flops, nbytes = k3_work(*views, out)
             bound_ms = max(flops / flop_rate, nbytes / HBM_BPS) * 1e3
             bound_by = "operations" if flops / flop_rate >= nbytes / HBM_BPS \
                 else "bytes"
             batch = tuple(out.shape[:-4])
-            log("kernels", kernel="pair_transfer", case=name,
+            diag = k3.pair_transfer_diagnostic(*views)
+            log("kernels", kernel="pair_transfer", case=name, form=form,
                 dtype=str(dtype), batch=batch, items=math.prod(batch),
                 rel_err=rel, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                 einsum_1call_ms=one_ms, flops=flops, bytes=nbytes,
                 bound_ms=bound_ms, bound_by=bound_by,
                 pct_of_bound=100 * bound_ms / ms,
-                plan=k3.pair_transfer_plan(*ops))
+                regs_per_thread=diag["regs_per_thread"],
+                spill_bytes=diag["spill_bytes"],
+                ctas_per_sm=diag["ctas_per_sm"], plan=diag)
             del out
             torch.cuda.empty_cache()
             if not (rel <= tol):
@@ -307,7 +338,10 @@ def k3_phase(device, peak, gen):
                 rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
                 if name == "diag_block":
                     rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, library_ms=one_ms)
+                               bound_by=bound_by, library_ms=one_ms,
+                               regs_per_thread=diag["regs_per_thread"],
+                               spill_bytes=diag["spill_bytes"],
+                               ctas_per_sm=diag["ctas_per_sm"])
     return rec
 
 

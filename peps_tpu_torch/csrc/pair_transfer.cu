@@ -15,38 +15,65 @@
 // batch (the candidate axis on one row, the unchanged row shared by every
 // candidate).
 //
-// What bounds it on the H100: the reference fuses the two rows into one fat
-// site [D, D^2, D, D^2] (1 MB at D = 8 in f32) so that the TPU's matrix unit
-// sees wide products. Done that way a step costs 604 MFLOP at chi = 32,
-// D = 8; done as four products it costs
+// What bounds it on the H100: operations. The reference fuses the two rows
+// into one site [D, D^2, D, D^2] so that the TPU's matrix unit sees wide
+// products, at 604 MFLOP per item at chi = 32, D = 8; done as four products
+// it costs
 //   2 (a m n c u A + m n c A u d r + n c A r d e f + A r f c e C)
-// = 201.3 MFLOP per item against 0.55 MB of operands, so the transfer is
-// compute-bound. f32 runs on the FP32 CUDA cores, which are its peak (no
-// TF32: the main path keeps full f32 sums); f64 on DFMA, half the card's
-// f64 peak (the DMMA tensor cores, which a later body may use).
+// = 201.3 MFLOP per item against 0.55 MB of operands. The card's peak for
+// that work is 66.9 TFLOP/s in either type: the FP32 CUDA cores for f32 (no
+// TF32: the main path keeps full f32 sums) and the DMMA tensor cores for
+// f64 (the FP64 CUDA cores give half of it).
 //
 // Design. One item's env and output are each chi^2 D^2 values (256 KB at
 // chi = 32, D = 8 in f32), more than a CTA's shared memory, so a CTA owns
-// one (item, tile of TA values of A) and streams env and bot in chunks of KC
-// values of c. Per chunk, four register-tiled SIMT GEMMs whose operands both
-// sit in shared memory (A' over the CTA's A tile, c' over the chunk):
-//   step 1  T1[(u,m)][(n,c',A')]   = sum_a   E[a][(n,c',m)] Ts[a][(u,A')]
-//   step 2  T2[(d,n)][(c',A',r)]   = sum_um  T1 R1[(u,m)][(d,r)]
-//   step 3  T3[(c',e)][(A',r,f)]   = sum_dn  T2 R2[(d,n)][(e,f)]
-//   step 4  acc[(A',r,f)][C]      += sum_c'e T3 B[(c',e)][C]
-// Each step writes its result in the K-major layout the next step reads;
-// the thread tile's columns are contiguous there, so it stores 16-byte
-// vectors. T3 overwrites T1. The output tile (TA D^2 chi values) stays in
-// registers across the chunks, so no global load sits inside a product
-// loop. row1, row2 and the top tile are copied in once per CTA; env and bot
-// stream with cp.async into two buffers each, so chunk k+1 lands while
-// chunk k is multiplied. Every copy is planned on the host (Box) with the
-// operand's own strides, consecutive threads on its smallest stride, and
-// zero-fills what lies past the last c or A. Plans: f32 TA = 8, KC = 2
-// (150 KB of shared memory, 4x8 tiles in steps 1-3, an 8x8 output tile per
-// thread); f64 TA = 4, KC = 1 (2x4 and 4x8). TA shrinks when the output
-// tiles would not fit in one per thread, KC and then TA when shared memory
-// would not fit; a shape that fits neither is refused.
+// one (item, tile of ta values of A) and walks c in chunks of kc values.
+// Per chunk, four products whose operands both lie in shared memory,
+// K-major (A' over the CTA's A tile, c' over the chunk):
+//   step 1  T1[(u,m)][(c',n,A')] = sum_a   E[a][(n,m,c')] Ts[a][(u,A')]
+//   step 2  T2[(d,n)][(c',A',r)] = sum_um  T1 R1[(u,m)][(d,r)]
+//   step 3  T3[(c',e)][(A',r,f)] = sum_dn  R2[(d,n)][(e,f)] T2
+//   step 4  acc[(A',r,f)][C]    += sum_c'e T3 B[(c',e)][C]
+// The output tile stays in registers (f32) or MMA fragments (f64) across
+// the chunks. Steps 1-3 place each product value through per-CTA offset
+// tables (row part + column part: no division in an epilogue) and store 16
+// bytes at a time along whichever index is contiguous there. row1, row2 and
+// the top tile are copied in once per CTA. env is read by step 1 alone, so
+// one buffer holds it: the next copy (kl values of c, two chunks' worth
+// when kc = 2) is issued after step 1 and lands during steps 2-4; bot
+// streams a chunk a copy into two buffers. Every copy is a cp.async planned
+// on the host (Box) with the operand's own strides, consecutive threads on
+// its smallest stride, 16 bytes a copy where that dim is contiguous on both
+// sides and aligned (one element where the strides force it, as in the
+// right form's views), and zero-fills what lies past the last c or A.
+// Shared memory is zeroed first, so the padding a product reads is zero.
+//
+// The two bodies:
+//  - f64 on the DMMA tensor cores: every product is warp-level
+//    mma.sync.aligned.m8n8k4.f64, a warp owning 4 x 2 tiles of 8 x 8, so
+//    that one fragment load feeds two or four MMAs (4 x 4 in step 4, whose
+//    accumulators stay in fragments across the chunks). Leading dims are 4
+//    mod 16 doubles, so the 32 lanes' fragment loads (row lane >> 2, k
+//    lane & 3) fall on distinct banks; env's, whose columns interleave two
+//    chunks, is 2 mod 16 with step 1's rows taken with bits 1 and 2 swapped
+//    (EPos), to the same end. K is padded to 4 with zeroed rows and columns
+//    past M or N are read and dropped, never branched around. One CTA of 8
+//    warps per SM (220 KB).
+//  - f32 on the FP32 CUDA cores: register-tiled SIMT products (4 x 4 per
+//    thread in steps 1-3, 4 x 8 in step 4; the lanes of a warp on 8 x 4
+//    tiles, so that fragment loads broadcast), the next k's fragments
+//    loaded before this k's FMAs. Two CTAs of 8 warps per SM (at most 113
+//    KB and 128 registers each), so one CTA's barriers overlap the other's
+//    products. At chi = 32, D = 8 the leading dims make every quarter-warp's
+//    16-byte scatter store and step 1's two 8-byte env loads conflict-free.
+//    What binds it is its own instruction stream, not shared memory: the
+//    4 x 4 tiles that two CTAs of 8 warps leave registers for give 16 FMAs
+//    a k-step against the loads, addresses and loop around them
+//    (scripts/ablate_pair_transfer.py times it with each part taken out).
+// The plan (A tile, c chunk, env grouping, leading dims, region offsets,
+// shared bytes) is chosen in Python (kernels/pair_transfer.py:
+// pair_transfer_plan) and comes in the meta; check_plan refuses one this
+// code cannot run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,8 +81,12 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBatch = 4;
-constexpr size_t kSmemLimit = 232448;
+constexpr int kMetaInts = kMaxBatch + 3 * (kMaxBatch + 4) +
+                          2 * (kMaxBatch + 3) + 11;
+constexpr int kPlanInts = 25;
+constexpr int64_t kSmemLimit = 232448;
 
 struct Meta {
   int64_t nb[kMaxBatch];          // batch sizes, padded with 1
@@ -67,54 +98,66 @@ struct Meta {
   int na, nm, nn, nc, nu, nA, nd, nr, ne, nf, nC;
 };
 
-// Thread tiles: steps 1-3 TM x TN, step 4 TM4 x TN4; default A tile, c chunk.
-template <int TM_, int TN_, int TM4_, int TN4_, int TA_, int KC_>
-struct Cfg {
-  static constexpr int TM = TM_, TN = TN_, TM4 = TM4_, TN4 = TN4_;
-  static constexpr int TA = TA_, KC = KC_;
+// The launch plan, in the order of kernels/pair_transfer.py:PLAN_KEYS.
+// Leading dims, offsets and buffer sizes in elements of T, the table offset
+// and the total in bytes. env is copied kl = kc or 2 kc values of c at a
+// time (one copy for two chunks), its n blocks zn apart; sw swaps bits 1
+// and 2 of step 1's row index (see EPos); T3 lies in X1 with T1 when oX3 ==
+// oX1.
+struct Plan {
+  int ta, kc, kl, zn, sw;
+  int ldE, ldT, ldR1, ldR2, ld1, ld2, ld3, ldB;
+  int oR1, oR2, oT, oE, oB, oX1, oX2, oX3, szE, szB;
+  int oTab, smem;
 };
-using F32Cfg = Cfg<4, 8, 8, 8, 8, 2>;
-using F64Cfg = Cfg<2, 4, 4, 8, 4, 1>;
 
 // An asynchronous copy of a 4-D box of a global operand into shared memory,
 // dst[sum i_k d_k] = src[sum i_k s_k], planned on the host: extents n, the
-// block stride kThreads as digits (step), and the dim clipped per call
-// (-1: none; c' of a partial last chunk, A' of a partial last tile).
+// block stride kThreads as digits (step), the dim clipped per call (-1:
+// none; c' of a partial last chunk, A' of a partial last tile) and the
+// values a copy moves (vec, along dim 3, whose n, s and d count vectors).
 struct Box {
   int64_t s[4];
-  int n[4], d[4], step[4], clip;
+  int n[4], d[4], step[4], clip, vec;
 };
 
-// Row m of a product goes to (m / p) * x + (m % p) * y of the destination,
-// column j to (j / q) * z + (j % q) * w.
-struct Scatter {
-  int p, x, y, q, z, w;
+struct Boxes {
+  Box e, b, t, r1, r2;
 };
 
-struct Plan {
-  int ta, kc, n_split;
-  int ldE, ldT, ldR1, ldR2, ld1, ld2, ld3, ldB;   // leading dims (elements)
-  int oR1, oR2, oT, oE, oB, oX1, oX2;            // region offsets (elements)
-  int szE, szB;                                  // one stream buffer
-  Box bE, bB, bT, bR1, bR2;
-  int64_t ctas;
-  size_t smem;                                   // bytes
+// Step 1's row index i is env value (n nm + m) kc + c' (with bits 1 and 2
+// of i swapped when sw: f64's 8-row MMA tiles then read c' pairs of m, m +
+// 2 in one half-warp, which a leading dim of 2 mod 16 puts on distinct
+// banks); its column in the copy E[a][n zn + m kl + c''] of kl values of c
+// is that of c'' = h kc + c' for chunk half h.
+__host__ __device__ inline int swap12(int i) {
+  return (i & ~6) | ((i & 2) << 1) | ((i & 4) >> 1);
+}
+struct EPos {
+  int kc, kl, h, nm, zn, sw;
+  __device__ __forceinline__ int operator()(int i) const {
+    if (sw) i = swap12(i);
+    const int g = i / kc;
+    return (g / nm) * zn + (g % nm) * kl + h * kc + i % kc;
+  }
 };
 
 __host__ __device__ inline int cdiv(int x, int m) { return (x + m - 1) / m; }
 __host__ __device__ inline int round_up(int x, int m) { return cdiv(x, m) * m; }
+// Thread tiles of an M x N product laid out as in tile_of.
 __host__ __device__ inline int tiles(int m, int tm, int n, int tn) {
   return cdiv(cdiv(m, tm), 8) * 8 * cdiv(cdiv(n, tn), 4) * 4;
 }
 
 // ---------------------------------------------------------------- device --
 
+// PTX helpers.
 template <int kBytes>
 __device__ __forceinline__ void cp_async(void* smem, const void* gmem,
-                                         bool ok) {
+                                         int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
-               "l"(gmem), "n"(kBytes), "r"(ok ? kBytes : 0)
+               "l"(gmem), "n"(kBytes), "r"(src_bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -123,6 +166,16 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// c += a b on one 8 x 8 x 4 tile: lane l holds a = A[l >> 2][l & 3],
+// b = B[l & 3][l >> 2], c = C[l >> 2][2 (l & 3) + {0, 1}].
+__device__ __forceinline__ void dmma(double (&c)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, "
+      "{%4, %5};\n"
+      : "=d"(c[0]), "=d"(c[1])
+      : "d"(a), "d"(b), "d"(c[0]), "d"(c[1]));
+}
+// End of PTX helpers.
 
 // The thread's first element of a box as four digits (once per CTA).
 __device__ __forceinline__ int4 first_digits(const Box& b) {
@@ -133,20 +186,45 @@ __device__ __forceinline__ int4 first_digits(const Box& b) {
   return make_int4(r / b.n[1], i1, i2, i3);
 }
 
-// Copy a planned box, element by element (the clipped dim valid below cv,
+// Copy a planned box, V values a copy (the clipped dim valid below cv,
 // zero-filled beyond); the digits advance by the block stride with carries.
-template <typename T>
-__device__ __forceinline__ void run_box(const Box& b, int4 f, T* dst,
-                                        const T* src, int cv) {
+template <typename T, int V>
+__device__ __forceinline__ void run_box_v(const Box& b, int4 f, T* dst,
+                                          const T* src, int cv) {
   int i0 = f.x, i1 = f.y, i2 = f.z, i3 = f.w;
+  if (b.step[1] == 0 && b.step[2] == 0 && b.step[3] == 0 && b.clip != 0) {
+    // The block covers dims 1-3 whole (env and bot in the left form): a
+    // thread's copies lie a fixed stride apart and share one validity.
+    int valid = V;
+    if (b.clip == 3) {
+      valid = cv - i3 * V;
+      valid = valid < 0 ? 0 : valid > V ? V : valid;
+    } else if (b.clip > 0) {
+      valid = (b.clip == 1 ? i1 : i2) < cv ? V : 0;
+    }
+    const int bytes = valid * static_cast<int>(sizeof(T));
+    const T* g = src + i0 * b.s[0] + i1 * b.s[1] + i2 * b.s[2] + i3 * b.s[3];
+    T* d = dst + i0 * b.d[0] + i1 * b.d[1] + i2 * b.d[2] + i3 * b.d[3];
+    const int64_t gs = b.step[0] * b.s[0];
+    const int ds = b.step[0] * b.d[0];
+    for (; i0 < b.n[0]; i0 += b.step[0], g += gs, d += ds)
+      cp_async<V * sizeof(T)>(d, bytes > 0 ? g : src, bytes);
+    return;
+  }
   while (i0 < b.n[0]) {
-    const int ic = b.clip == 0 ? i0 : b.clip == 1 ? i1 : b.clip == 2 ? i2 : i3;
-    const bool ok = b.clip < 0 || ic < cv;
-    const T* g = ok ? src + i0 * b.s[0] + i1 * b.s[1] + i2 * b.s[2] +
-                          i3 * b.s[3]
-                    : src;
-    cp_async<sizeof(T)>(
-        dst + i0 * b.d[0] + i1 * b.d[1] + i2 * b.d[2] + i3 * b.d[3], g, ok);
+    int valid = V;
+    if (b.clip == 3) {
+      valid = cv - i3 * V;
+      valid = valid < 0 ? 0 : valid > V ? V : valid;
+    } else if (b.clip >= 0) {
+      valid = (b.clip == 0 ? i0 : b.clip == 1 ? i1 : i2) < cv ? V : 0;
+    }
+    const T* g = valid > 0 ? src + i0 * b.s[0] + i1 * b.s[1] + i2 * b.s[2] +
+                                 i3 * b.s[3]
+                           : src;
+    cp_async<V * sizeof(T)>(
+        dst + i0 * b.d[0] + i1 * b.d[1] + i2 * b.d[2] + i3 * b.d[3], g,
+        valid * static_cast<int>(sizeof(T)));
     i3 += b.step[3];
     int carry = i3 >= b.n[3];
     if (carry) i3 -= b.n[3];
@@ -160,56 +238,16 @@ __device__ __forceinline__ void run_box(const Box& b, int4 f, T* dst,
   }
 }
 
-// N consecutive shared values into registers with 16-byte loads.
-template <int N>
-__device__ __forceinline__ void load_frag(float (&x)[N], const float* p) {
-  static_assert(N % 4 == 0, "f32 tile widths are multiples of 4");
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i) {
-    const float4 v = reinterpret_cast<const float4*>(p)[i];
-    x[4 * i] = v.x; x[4 * i + 1] = v.y; x[4 * i + 2] = v.z;
-    x[4 * i + 3] = v.w;
-  }
-}
-template <int N>
-__device__ __forceinline__ void load_frag(double (&x)[N], const double* p) {
-  static_assert(N % 2 == 0, "f64 tile widths are even");
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const double2 v = reinterpret_cast<const double2*>(p)[i];
-    x[2 * i] = v.x; x[2 * i + 1] = v.y;
-  }
-}
-
-// N consecutive registers into shared memory with 16-byte stores.
-template <int N>
-__device__ __forceinline__ void store_frag(float* p, const float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i)
-    reinterpret_cast<float4*>(p)[i] =
-        make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
-}
-template <int N>
-__device__ __forceinline__ void store_frag(double* p, const double (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i)
-    reinterpret_cast<double2*>(p)[i] = make_double2(x[2 * i], x[2 * i + 1]);
-}
-
-// acc[TM][TN] += sum_k a[k][0:TM] b[k][0:TN]; a and b in shared memory,
-// K-major, already offset to the tile.
-template <typename T, int TM, int TN>
-__device__ __forceinline__ void mma_tile(T (&acc)[TM][TN], const T* a,
-                                         int lda, const T* b, int ldb, int K) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    T x[TM], y[TN];
-    load_frag<TM>(x, a + k * lda);
-    load_frag<TN>(y, b + k * ldb);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fma(x[i], y[j], acc[i][j]);
+template <typename T>
+__device__ __forceinline__ void run_box(const Box& b, int4 f, T* dst,
+                                        const T* src, int cv) {
+  if (b.vec == 1) {
+    run_box_v<T, 1>(b, f, dst, src, cv);
+  } else if constexpr (sizeof(T) == 4) {
+    if (b.vec == 2) run_box_v<T, 2>(b, f, dst, src, cv);
+    else run_box_v<T, 4>(b, f, dst, src, cv);
+  } else {
+    run_box_v<T, 2>(b, f, dst, src, cv);
   }
 }
 
@@ -223,66 +261,242 @@ __device__ __forceinline__ bool tile_of(int t, int n_mt, int n_nt, int& mi,
   return mi < n_mt && ni < n_nt;
 }
 
-// dst <- a^T b for an M x N product with K-major operands in shared memory,
-// each value placed by the scatter s; a thread's row of TN values is stored
-// as 16-byte vectors where it is contiguous and aligned there.
-template <typename T, int TM, int TN>
-__device__ __forceinline__ void block_product(const T* a, int lda, const T* b,
-                                              int ldb, int K, int M, int N,
-                                              T* dst, const Scatter s) {
-  constexpr int W = 16 / sizeof(T);
-  const int n_mt = cdiv(M, TM), n_nt = cdiv(N, TN);
-  const int total = tiles(M, TM, N, TN);
-  for (int t = threadIdx.x; t < total; t += kThreads) {
-    int mi, ni;
-    if (!tile_of(t, n_mt, n_nt, mi, ni)) continue;
-    T acc[TM][TN];
+// ------------------------------------------------ f32: SIMT FMA products --
+
+template <int N>
+__device__ __forceinline__ void load_frag(float (&x)[N], const float* p) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float4 v = reinterpret_cast<const float4*>(p)[i];
+    x[4 * i] = v.x; x[4 * i + 1] = v.y; x[4 * i + 2] = v.z;
+    x[4 * i + 3] = v.w;
+  }
+}
+
+template <int TM, int TN>
+__device__ __forceinline__ void fma_tile(float (&acc)[TM][TN],
+                                         const float (&x)[TM],
+                                         const float (&y)[TN]) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+}
+
+// Four values of an X fragment: contiguous (one 16-byte load), or two pairs
+// xs apart (the env copy of two chunks, whose c' pairs lie kl apart).
+template <bool kPairs>
+__device__ __forceinline__ void load_x(float (&x)[4], const float* p, int xs) {
+  if constexpr (kPairs) {
+    const float2 a = reinterpret_cast<const float2*>(p)[0];
+    const float2 b = *reinterpret_cast<const float2*>(p + xs);
+    x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+  } else {
+    load_frag<4>(x, p);
+  }
+}
+
+// acc[4][TN] += sum_k x[k][0:4] y[k][0:TN], x and y K-major in shared
+// memory and offset to the tile; the next k's fragments load before this
+// k's FMAs.
+template <int TN, bool kPairs = false>
+__device__ __forceinline__ void simt_acc(float (&acc)[4][TN], const float* x,
+                                         int ldx, const float* y, int ldy,
+                                         int K, int xs = 0) {
+  if (K <= 0) return;
+  float x0[4], y0[TN], x1[4], y1[TN];
+  load_x<kPairs>(x0, x, xs);
+  load_frag<TN>(y0, y);
+  for (int k = 0; k < K; k += 2) {
+    const bool two = k + 1 < K;
+    if (two) {
+      load_x<kPairs>(x1, x + ldx, xs);
+      load_frag<TN>(y1, y + ldy);
+    }
+    fma_tile<4, TN>(acc, x0, y0);
+    x += 2 * ldx;
+    y += 2 * ldy;
+    if (k + 2 < K) {
+      load_x<kPairs>(x0, x, xs);
+      load_frag<TN>(y0, y);
+    }
+    if (two) fma_tile<4, TN>(acc, x1, y1);
+  }
+}
+
+// P[m][n] -> dst[ro[m] + co[n]] for the tile at (m0, n0): 16 bytes at a time
+// along n or along m where the positions are contiguous and aligned there.
+template <int TM, int TN>
+__device__ __forceinline__ void simt_store(const float (&acc)[TM][TN], int m0,
+                                           int n0, int M, int N, float* dst,
+                                           const int* ro, const int* co) {
+  static_assert(TM == 4 && TN == 4, "16-byte rows and columns");
+  const int c0 = co[n0], r0 = ro[m0];
+  bool vn = n0 + TN <= N, vm = m0 + TM <= M;
+#pragma unroll
+  for (int j = 1; j < TN; ++j) vn = vn && co[n0 + j] == c0 + j;
+#pragma unroll
+  for (int i = 1; i < TM; ++i) vm = vm && ro[m0 + i] == r0 + i;
+  if (vn) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      if (m0 + i >= M) continue;
+      const int o = ro[m0 + i] + c0;
+      if ((o & 3) == 0) {
+        *reinterpret_cast<float4*>(dst + o) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) dst[o + j] = acc[i][j];
+      }
+    }
+  } else if (vm) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      if (n0 + j >= N) continue;
+      const int o = r0 + co[n0 + j];
+      if ((o & 3) == 0) {
+        *reinterpret_cast<float4*>(dst + o) =
+            make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) dst[o + i] = acc[i][j];
+      }
+    }
+  } else {
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
-    mma_tile<T, TM, TN>(acc, a + mi * TM, lda, b + ni * TN, ldb, K);
-    int col[TN];
+      for (int j = 0; j < TN; ++j)
+        if (m0 + i < M && n0 + j < N)
+          dst[ro[m0 + i] + co[n0 + j]] = acc[i][j];
+  }
+}
+
+// dst <- X^T Y for an M x N product (K-major operands in shared memory; X's
+// columns at xp, read in pairs xp.kl apart when kPairs), 4 x 4 tiles per
+// thread.
+template <bool kPairs = false>
+__device__ __forceinline__ void simt_product(const float* X, int ldx, EPos xp,
+                                             const float* Y, int ldy, int K,
+                                             int M, int N, float* dst,
+                                             const int* ro, const int* co) {
+  const int n_mt = cdiv(M, 4), n_nt = cdiv(N, 4);
+  const int total = tiles(M, 4, N, 4);
+  for (int t = threadIdx.x; t < total; t += kThreads) {
+    int mi, ni;
+    if (!tile_of(t, n_mt, n_nt, mi, ni)) continue;
+    float acc[4][4] = {};
+    simt_acc<4, kPairs>(acc, X + xp(mi * 4), ldx, Y + ni * 4, ldy, K, xp.kl);
+    simt_store<4, 4>(acc, mi * 4, ni * 4, M, N, dst, ro, co);
+  }
+}
+
+// ----------------------------------------------- f64: DMMA tensor cores --
+
+// acc += the warp tile's product; x and y point at the lane's first value
+// (row lane & 3 of K, column lane >> 2 of the tile), K a multiple of 4. The
+// next k-step's fragments load before this one's MMAs.
+template <int WM, int WN>
+__device__ __forceinline__ void dmma_acc(double (&acc)[WM][WN][2],
+                                         const double* x, int ldx,
+                                         const double* y, int ldy, int K,
+                                         int xt = 8) {
+  if (K <= 0) return;
+  const int sx = 4 * ldx, sy = 4 * ldy;
+  double a0[WM], b0[WN], a1[WM], b1[WN];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = ni * TN + j;
-      col[j] = n < N ? (n / s.q) * s.z + (n % s.q) * s.w : -1;
+  for (int i = 0; i < WM; ++i) a0[i] = x[xt * i];
+#pragma unroll
+  for (int j = 0; j < WN; ++j) b0[j] = y[8 * j];
+  for (int k = 0; k < K; k += 8) {
+    const bool two = k + 4 < K;
+    if (two) {
+#pragma unroll
+      for (int i = 0; i < WM; ++i) a1[i] = x[sx + xt * i];
+#pragma unroll
+      for (int j = 0; j < WN; ++j) b1[j] = y[sy + 8 * j];
     }
-    const bool contig = col[TN - 1] == col[0] + TN - 1;
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = mi * TM + i;
+    for (int i = 0; i < WM; ++i)
+#pragma unroll
+      for (int j = 0; j < WN; ++j) dmma(acc[i][j], a0[i], b0[j]);
+    x += 2 * sx;
+    y += 2 * sy;
+    if (k + 8 < K) {
+#pragma unroll
+      for (int i = 0; i < WM; ++i) a0[i] = x[xt * i];
+#pragma unroll
+      for (int j = 0; j < WN; ++j) b0[j] = y[8 * j];
+    }
+    if (two) {
+#pragma unroll
+      for (int i = 0; i < WM; ++i)
+#pragma unroll
+        for (int j = 0; j < WN; ++j) dmma(acc[i][j], a1[i], b1[j]);
+    }
+  }
+}
+
+// dst <- X^T Y for an M x N product (K-major operands in shared memory, K
+// padded to 4, X's columns at xp), warp tiles of WM x WN MMA tiles; P[m][n]
+// -> dst[ro[m] + co[n]], a lane's two neighbouring values as one 16-byte
+// store where they are neighbours there.
+template <int WM, int WN>
+__device__ __forceinline__ void dmma_product(const double* X, int ldx, EPos xp,
+                                             const double* Y, int ldy, int K,
+                                             int M, int N, double* dst,
+                                             const int* ro, const int* co) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int n_wm = cdiv(M, 8 * WM), n_wn = cdiv(N, 8 * WN);
+  for (int w = warp; w < n_wm * n_wn; w += kWarps) {
+    const int m0 = (w % n_wm) * 8 * WM, n0 = (w / n_wm) * 8 * WN;
+    double acc[WM][WN][2] = {};
+    dmma_acc<WM, WN>(acc, X + q * ldx + xp(m0 + g), ldx,
+                     Y + q * ldy + n0 + g, ldy, K, 8 * xp.kl / xp.kc);
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+      const int m = m0 + 8 * i + g;
       if (m >= M) continue;
-      const int row = (m / s.p) * s.x + (m % s.p) * s.y;
-      if (contig && (row + col[0]) % W == 0) {
-        store_frag<TN>(dst + row + col[0], acc[i]);
-      } else {
+      const int r = ro[m];
 #pragma unroll
-        for (int j = 0; j < TN; ++j)
-          if (col[j] >= 0) dst[row + col[j]] = acc[i][j];
+      for (int j = 0; j < WN; ++j) {
+        const int n = n0 + 8 * j + 2 * q;
+        if (n >= N) continue;
+        const int o = r + co[n];
+        if (n + 1 < N && co[n + 1] == co[n] + 1 && (o & 1) == 0) {
+          *reinterpret_cast<double2*>(dst + o) =
+              make_double2(acc[i][j][0], acc[i][j][1]);
+        } else {
+          dst[o] = acc[i][j][0];
+          if (n + 1 < N) dst[r + co[n + 1]] = acc[i][j][1];
+        }
       }
     }
   }
 }
 
-template <typename T, typename C>
-__global__ void __launch_bounds__(kThreads, 1)
+// ---------------------------------------------------------------- kernel --
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 1)
 pair_transfer_kernel(const T* __restrict__ env, const T* __restrict__ top,
                      const T* __restrict__ row1, const T* __restrict__ row2,
                      const T* __restrict__ bot, T* __restrict__ out,
-                     const Meta m, const Plan p) {
+                     const Meta m, const Plan p, const Boxes bx) {
+  constexpr bool kMma = sizeof(T) == 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
-  T* const R1 = sm + p.oR1;    // [u*nm + m][d*nr + r]
-  T* const R2 = sm + p.oR2;    // [d*nn + n][e*nf + f]
-  T* const Ts = sm + p.oT;     // [a][u*ta + A']
-  T* const X1 = sm + p.oX1;    // T1 [u*nm + m][(n*kc + c')*ta + A'],
-                               // then T3 [c'*ne + e][(A'*nr + r)*nf + f]
-  T* const X2 = sm + p.oX2;    // T2 [d*nn + n][(c'*ta + A')*nr + r]
-
   const int tid = threadIdx.x;
-  const int64_t item = blockIdx.x / p.n_split;
-  const int A0 = static_cast<int>(blockIdx.x % p.n_split) * p.ta;
+  for (int i = tid; i < p.smem / 16; i += kThreads)
+    reinterpret_cast<int4*>(smem_raw)[i] = make_int4(0, 0, 0, 0);
+
+  const int ta = p.ta, kc = p.kc;
+  const int n_split = cdiv(m.nA, ta);
+  const int64_t item = blockIdx.x / n_split;
+  const int A0 = static_cast<int>(blockIdx.x % n_split) * ta;
+  const int va = m.nA - A0 < ta ? m.nA - A0 : ta;   // valid A' of the tile
   int64_t rem = item;
   int64_t oe = 0, ot = 0, o1 = 0, o2 = 0, ob = 0;
   for (int k = kMaxBatch - 1; k >= 0; --k) {
@@ -294,80 +508,169 @@ pair_transfer_kernel(const T* __restrict__ env, const T* __restrict__ top,
     o2 += i * m.s2[k];
     ob += i * m.sb[k];
   }
+
+  // the products' sizes; K padded to the MMA's 4 in f64
+  const int kq = kMma ? 4 : 1;
+  const int M1 = m.nn * kc * m.nm, N1 = m.nu * ta, K1 = round_up(m.na, kq);
+  const int M2 = m.nn * kc * ta, N2 = m.nd * m.nr,
+            K2 = round_up(m.nu * m.nm, kq);
+  const int M3 = m.ne * m.nf, N3 = kc * ta * m.nr,
+            K3 = round_up(m.nd * m.nn, kq);
+  const int M4 = ta * m.nr * m.nf, N4 = m.nC, K4 = round_up(kc * m.ne, kq);
+
+  // offset tables: P1 -> T1, P2 -> T2, P3 -> T3 (row part + column part)
+  int* const ro1 = reinterpret_cast<int*>(smem_raw + p.oTab);
+  int* const co1 = ro1 + M1;
+  int* const ro2 = co1 + N1;
+  int* const co2 = ro2 + M2;
+  int* const ro3 = co2 + N2;
+  int* const co3 = ro3 + M3;
+  __syncthreads();   // zeroed before the tables and copies land
+  for (int i = tid; i < M1; i += kThreads) {   // (n, m, c')
+    const int j = p.sw ? swap12(i) : i;
+    ro1[i] = ((j / kc) % m.nm) * p.ld1 +
+             ((j % kc) * m.nn + j / (kc * m.nm)) * ta;
+  }
+  for (int i = tid; i < N1; i += kThreads)     // (u, A')
+    co1[i] = (i / ta) * m.nm * p.ld1 + i % ta;
+  for (int i = tid; i < M2; i += kThreads)     // (c', n, A')
+    ro2[i] = ((i / ta) % m.nn) * p.ld2 + (i / (m.nn * ta)) * ta * m.nr +
+             (i % ta) * m.nr;
+  for (int i = tid; i < N2; i += kThreads)     // (d, r)
+    co2[i] = (i / m.nr) * m.nn * p.ld2 + i % m.nr;
+  for (int i = tid; i < M3; i += kThreads)     // (e, f)
+    ro3[i] = (i / m.nf) * p.ld3 + i % m.nf;
+  for (int i = tid; i < N3; i += kThreads)     // (c', A', r)
+    co3[i] = (i / (ta * m.nr)) * m.ne * p.ld3 + (i % (ta * m.nr)) * m.nf;
+
+  T* const R1 = sm + p.oR1;    // [u*nm + m][d*nr + r]
+  T* const R2 = sm + p.oR2;    // [d*nn + n][e*nf + f]
+  T* const Ts = sm + p.oT;     // [a][u*ta + A']
+  T* const E = sm + p.oE;      // [a][n*zn + m*kl + c'']
+  T* const X1 = sm + p.oX1;    // T1 [u*nm + m][(c'*nn + n)*ta + A']
+  T* const X2 = sm + p.oX2;    // T2 [d*nn + n][(c'*ta + A')*nr + r]
+  T* const X3 = sm + p.oX3;    // T3 [c'*ne + e][(A'*nr + r)*nf + f]
   const T* const e = env + oe;
   const T* const b = bot + ob;
-  const int ta = p.ta, kc = p.kc;
-  const int va = m.nA - A0 < ta ? m.nA - A0 : ta;   // valid A' of the tile
-
-  run_box<T>(p.bR1, first_digits(p.bR1), R1, row1 + o1, 0);
-  run_box<T>(p.bR2, first_digits(p.bR2), R2, row2 + o2, 0);
-  run_box<T>(p.bT, first_digits(p.bT), Ts,
+  run_box<T>(bx.r1, first_digits(bx.r1), R1, row1 + o1, 0);
+  run_box<T>(bx.r2, first_digits(bx.r2), R2, row2 + o2, 0);
+  run_box<T>(bx.t, first_digits(bx.t), Ts,
              top + ot + A0 * m.st[kMaxBatch + 2], va);
-  const int4 first_e = first_digits(p.bE);
-  const int4 first_b = first_digits(p.bB);
-  auto stage_chunk = [&](int ch) {
+  const int4 first_e = first_digits(bx.e);
+  const int4 first_b = first_digits(bx.b);
+  // env: kl values of c a copy, one copy per group of G chunks (E is read
+  // by step 1 alone, so the next group lands during steps 2-4); bot: one
+  // chunk a copy into two buffers
+  const int G = p.kl / kc;
+  auto stage_env = [&](int grp) {
+    const int c0 = grp * p.kl;
+    run_box<T>(bx.e, first_e, E, e + c0 * m.se[kMaxBatch + 3], m.nc - c0);
+  };
+  auto stage_bot = [&](int ch) {
     const int c0 = ch * kc;
-    run_box<T>(p.bE, first_e, sm + p.oE + (ch & 1) * p.szE,
-               e + c0 * m.se[kMaxBatch + 3], m.nc - c0);
-    run_box<T>(p.bB, first_b, sm + p.oB + (ch & 1) * p.szB,
+    run_box<T>(bx.b, first_b, sm + p.oB + (ch & 1) * p.szB,
                b + c0 * m.sb[kMaxBatch], m.nc - c0);
   };
-  stage_chunk(0);
+  stage_env(0);
+  stage_bot(0);
   cp_async_commit();
 
-  const int M1 = m.nn * kc * m.nm, N1 = m.nu * ta;
-  const int M2 = m.nn * kc * ta, N2 = m.nd * m.nr;
-  const int M3 = kc * ta * m.nr, N3 = m.ne * m.nf;
-  const int M4 = ta * m.nr * m.nf, N4 = m.nC;
-  const Scatter s1{m.nm, ta, p.ld1, ta, m.nm * p.ld1, 1};
-  const Scatter s2{kc * ta, p.ld2, m.nr, m.nr, m.nn * p.ld2, 1};
-  const Scatter s3{ta * m.nr, m.ne * p.ld3, m.nf, m.nf, p.ld3, 1};
-
-  int mi4, ni4;
-  const bool ok4 = tile_of(tid, cdiv(M4, C::TM4), cdiv(N4, C::TN4), mi4, ni4);
-  T acc[C::TM4][C::TN4];
-#pragma unroll
-  for (int i = 0; i < C::TM4; ++i)
-#pragma unroll
-    for (int j = 0; j < C::TN4; ++j) acc[i][j] = T(0);
-
+  const int rows = va * m.nr * m.nf;   // valid rows of the output tile
+  T* const o = out + (item * m.nA * m.nr * m.nf + int64_t(A0) * m.nr * m.nf) *
+                         m.nC;
   const int n_ch = cdiv(m.nc, kc);
+  const EPos ident{1, 1, 0, 1 << 30, 0, 0};
+  // step 4's output tile for all chunks: f64, warp w's 32 x 32 tile; f32,
+  // the thread's 4 x 8 tile
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int n_wm4 = cdiv(M4, 32);
+  int mi4 = 0, ni4 = 0;
+  const bool own = kMma ? warp < n_wm4 * cdiv(N4, 32)
+                        : tile_of(tid, cdiv(M4, 4), cdiv(N4, 8), mi4, ni4);
+  const int m4 = (warp % n_wm4) * 32, n4 = (warp / n_wm4) * 32;
+  double dacc[kMma ? 4 : 1][4][2] = {};
+  float facc[4][kMma ? 1 : 8] = {};
+
   for (int ch = 0; ch < n_ch; ++ch) {
     cp_async_wait_all();
     __syncthreads();   // chunk ch has landed; chunk ch-1 is consumed
     if (ch + 1 < n_ch) {
-      stage_chunk(ch + 1);
+      stage_bot(ch + 1);
       cp_async_commit();
     }
-    const T* E = sm + p.oE + (ch & 1) * p.szE;
+    const EPos xp{kc, p.kl, ch % G, m.nm, p.zn, p.sw};
     const T* B = sm + p.oB + (ch & 1) * p.szB;
-    block_product<T, C::TM, C::TN>(E, p.ldE, Ts, p.ldT, m.na, M1, N1, X1, s1);
+    if constexpr (kMma)
+      dmma_product<4, 2>(E, p.ldE, xp, Ts, p.ldT, K1, M1, N1, X1, ro1, co1);
+    else if (G == 2)
+      simt_product<true>(E, p.ldE, xp, Ts, p.ldT, K1, M1, N1, X1, ro1, co1);
+    else
+      simt_product(E, p.ldE, xp, Ts, p.ldT, K1, M1, N1, X1, ro1, co1);
     __syncthreads();
-    block_product<T, C::TM, C::TN>(X1, p.ld1, R1, p.ldR1, m.nu * m.nm, M2, N2,
-                                   X2, s2);
-    __syncthreads();
-    block_product<T, C::TM, C::TN>(X2, p.ld2, R2, p.ldR2, m.nd * m.nn, M3, N3,
-                                   X1, s3);
-    __syncthreads();
-    if (ok4)
-      mma_tile<T, C::TM4, C::TN4>(acc, X1 + mi4 * C::TM4, p.ld3,
-                                  B + ni4 * C::TN4, p.ldB, kc * m.ne);
+    if (ch + 1 < n_ch && (ch + 1) % G == 0) {
+      stage_env((ch + 1) / G);
+      cp_async_commit();
+    }
+    if constexpr (kMma) {
+      dmma_product<4, 2>(X1, p.ld1, ident, R1, p.ldR1, K2, M2, N2, X2, ro2,
+                         co2);
+      __syncthreads();
+      // step 3 as T2^T R2: a lane's two values are f neighbours in T3
+      dmma_product<4, 2>(X2, p.ld2, ident, R2, p.ldR2, K3, N3, M3, X3, co3,
+                         ro3);
+      __syncthreads();
+      if (own)
+        dmma_acc<4, 4>(dacc, X3 + q * p.ld3 + m4 + g, p.ld3,
+                       B + q * p.ldB + n4 + g, p.ldB, K4);
+    } else {
+      simt_product(X1, p.ld1, ident, R1, p.ldR1, K2, M2, N2, X2, ro2, co2);
+      __syncthreads();
+      simt_product(R2, p.ldR2, ident, X2, p.ld2, K3, M3, N3, X3, ro3, co3);
+      __syncthreads();
+      if (own)
+        simt_acc<8>(facc, X3 + mi4 * 4, p.ld3, B + ni4 * 8, p.ldB, K4);
+    }
   }
+  if (!own) return;
 
-  if (!ok4) return;
   // out[item, A0 + A', r, f, C]: row (A', r, f) of the tile is row
-  // A0 nr nf + m4 of the item
-  const int rows = va * m.nr * m.nf;
-  T* const o = out + (item * m.nA * m.nr * m.nf + int64_t(A0) * m.nr * m.nf) *
-                         m.nC;
+  // A0 nr nf + row of the item
+  if constexpr (kMma) {
 #pragma unroll
-  for (int i = 0; i < C::TM4; ++i) {
-    const int r = mi4 * C::TM4 + i;
-    if (r >= rows) continue;
+    for (int i = 0; i < 4; ++i) {
+      const int r = m4 + 8 * i + g;
+      if (r >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < C::TN4; ++j) {
-      const int c = ni4 * C::TN4 + j;
-      if (c < N4) o[int64_t(r) * m.nC + c] = acc[i][j];
+      for (int j = 0; j < 4; ++j) {
+        const int c = n4 + 8 * j + 2 * q;
+        T* const d = o + int64_t(r) * m.nC + c;
+        if (c + 1 < N4 && (m.nC & 1) == 0) {
+          *reinterpret_cast<double2*>(d) =
+              make_double2(dacc[i][j][0], dacc[i][j][1]);
+        } else {
+          if (c < N4) d[0] = dacc[i][j][0];
+          if (c + 1 < N4) d[1] = dacc[i][j][1];
+        }
+      }
+    }
+  } else {
+    const int c0 = ni4 * 8;
+    const bool vec = c0 + 8 <= N4 && (m.nC & 3) == 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = mi4 * 4 + i;
+      if (r >= rows) continue;
+      T* const d = o + int64_t(r) * m.nC + c0;
+      if (vec) {
+        reinterpret_cast<float4*>(d)[0] =
+            make_float4(facc[i][0], facc[i][1], facc[i][2], facc[i][3]);
+        reinterpret_cast<float4*>(d)[1] =
+            make_float4(facc[i][4], facc[i][5], facc[i][6], facc[i][7]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (c0 + j < N4) d[j] = facc[i][j];
+      }
     }
   }
 }
@@ -376,7 +679,7 @@ pair_transfer_kernel(const T* __restrict__ env, const T* __restrict__ top,
 
 // meta layout (int64): nb[4], env strides[8], top strides[7], row1
 // strides[8], row2 strides[8], bot strides[7], na, nm, nn, nc, nu, nA, nd,
-// nr, ne, nf, nC.
+// nr, ne, nf, nC, then the plan's kPlanInts values.
 Meta unpack(const int64_t* p) {
   Meta m;
   for (int k = 0; k < kMaxBatch; ++k) m.nb[k] = *p++;
@@ -391,25 +694,122 @@ Meta unpack(const int64_t* p) {
   return m;
 }
 
+bool unpack_plan(const int64_t* p, Plan& plan) {
+  int* fields[] = {&plan.ta,   &plan.kc,   &plan.kl,   &plan.zn,
+                   &plan.sw,   &plan.ldE,  &plan.ldT,  &plan.ldR1,
+                   &plan.ldR2, &plan.ld1,  &plan.ld2,  &plan.ld3,
+                   &plan.ldB,  &plan.oR1,
+                   &plan.oR2,  &plan.oT,   &plan.oE,   &plan.oB,
+                   &plan.oX1,  &plan.oX2,  &plan.oX3,  &plan.szE,
+                   &plan.szB,  &plan.oTab, &plan.smem};
+  static_assert(sizeof(fields) / sizeof(fields[0]) == kPlanInts, "plan");
+  for (int* f : fields) {
+    if (*p < 0 || *p > kSmemLimit) return false;
+    *f = static_cast<int>(*p++);
+  }
+  return true;
+}
+
 int64_t batch_items(const Meta& m) {
   int64_t items = 1;
   for (int k = 0; k < kMaxBatch; ++k) items *= m.nb[k];
   return items;
 }
 
-// A leading dim: a multiple of 4 elements (16-byte rows), and not of 32.
-int lead(int x) {
-  const int ld = round_up(x, 4);
-  return ld % 32 == 0 ? ld + 4 : ld;
+// Whether this code can run the plan: env groups of one or two chunks
+// (pairs of c' in f32), every operand's rows and the columns its product
+// reads fit its leading dim, the regions are aligned and disjoint (T1 and T3
+// may share one when no padding row of one lies under the other's values),
+// the tables and the total fit, and step 4's tiles fit the CTA. A plan that
+// passes reads and writes only inside its own shared memory.
+template <typename T>
+bool check_plan(const Meta& m, const Plan& p) {
+  constexpr bool mma = sizeof(T) == 8;
+  constexpr int W = 16 / sizeof(T), kq = mma ? 4 : 1;
+  const int ta = p.ta, kc = p.kc;
+  if (ta < 1 || ta > m.nA || kc < 1 || kc > m.nc) return false;
+  if (p.kl != kc && !(kc == 2 && p.kl == 4)) return false;
+  // pairs of c' in f32 stay inside an n block; f64 lanes step 8 kl / kc
+  if (p.kl != kc && !mma && m.nm % 2 != 0) return false;
+  if (p.zn < m.nm * p.kl || (mma && p.zn != m.nm * p.kl))
+    return false;
+  // the swap permutes rows within aligned groups of 8 = 4 m x 2 c'
+  if (p.sw != 0 && (p.sw != 1 || kc != 2 || m.nm % 4 != 0)) return false;
+  auto kp = [&](int x) { return round_up(x, kq); };
+  // columns read: SIMT tiles of 4 (8 for bot), DMMA tiles of 32 and 16 (32)
+  auto wx = [&](int x) { return round_up(x, mma ? 32 : 4); };
+  auto wy = [&](int x, bool last) {
+    return round_up(x, mma ? (last ? 32 : 16) : (last ? 8 : 4));
+  };
+  const int M1 = m.nn * kc * m.nm, N1 = m.nu * ta, M2 = m.nn * kc * ta,
+            N2 = m.nd * m.nr, M3 = m.ne * m.nf, N3 = kc * ta * m.nr,
+            M4 = ta * m.nr * m.nf;
+  const int lds[] = {p.ldE, p.ldT, p.ldR1, p.ldR2, p.ld1, p.ld2, p.ld3,
+                     p.ldB};
+  // f64 reads T2 as step 3's X (T2^T R2), f32 as its Y (R2^T T2)
+  const int need[] = {cdiv(wx(M1) / kc, m.nm) * p.zn, wy(N1, false),
+                      wy(N2, false), wx(M3), wx(M2),
+                      mma ? wx(N3) : wy(N3, false), wx(M4), wy(m.nC, true)};
+  for (int i = 0; i < 8; ++i)
+    if (lds[i] < need[i] || lds[i] % W != 0) return false;
+  const int64_t x1 = int64_t(kp(m.nu * m.nm)) * p.ld1;
+  const int64_t x3 = int64_t(kp(kc * m.ne)) * p.ld3;
+  const bool shared13 = p.oX3 == p.oX1;
+  if (shared13 && mma && ((m.nu * m.nm) % kq != 0 || (kc * m.ne) % kq != 0))
+    return false;
+  if (p.szE < int64_t(kp(m.na)) * p.ldE || p.szB < int64_t(kp(kc * m.ne)) * p.ldB)
+    return false;
+  struct Region { int64_t o, n; };
+  const Region regions[] = {
+      {p.oR1, int64_t(kp(m.nu * m.nm)) * p.ldR1},
+      {p.oR2, int64_t(kp(m.nd * m.nn)) * p.ldR2},
+      {p.oT, int64_t(kp(m.na)) * p.ldT},
+      {p.oE, int64_t(p.szE)},
+      {p.oB, 2 * int64_t(p.szB)},
+      {p.oX1, shared13 && x3 > x1 ? x3 : x1},
+      {p.oX2, int64_t(kp(m.nd * m.nn)) * p.ld2},
+      {p.oX3, shared13 ? 0 : x3}};
+  int64_t end = 0;
+  for (int i = 0; i < 8; ++i) {
+    const Region& a = regions[i];
+    if (a.o % W != 0) return false;
+    if (a.o + a.n > end) end = a.o + a.n;
+    for (int j = 0; j < i; ++j) {
+      const Region& c = regions[j];
+      if (a.n > 0 && c.n > 0 && a.o < c.o + c.n && c.o < a.o + a.n)
+        return false;
+    }
+  }
+  if (p.szE % W != 0 || p.szB % W != 0) return false;
+  const int64_t tab = int64_t(M1) + N1 + M2 + N2 + M3 + N3;
+  if (p.oTab % 16 != 0 || p.oTab < end * int64_t(sizeof(T)) ||
+      p.oTab + 4 * tab > p.smem || p.smem % 16 != 0 || p.smem > kSmemLimit)
+    return false;
+  return mma ? cdiv(M4, 32) * cdiv(m.nC, 32) <= kWarps
+             : tiles(M4, 4, m.nC, 8) <= kThreads;
+}
+
+int64_t gcd64(int64_t a, int64_t b) {
+  a = a < 0 ? -a : a;
+  b = b < 0 ? -b : b;
+  while (b) {
+    const int64_t t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
 }
 
 // Plan a box copy: dims in the destination's order; the dim of smallest
-// |source stride| (of those longer than 1) becomes the threads' fastest.
+// |source stride| (of those longer than 1) becomes the threads' fastest,
+// and moves up to wmax values a copy where it is contiguous on both sides
+// and every other source step (other dims, the batch, the per-call offset,
+// the base address: their gcd is `align`) keeps the vectors aligned.
 Box make_box(int n0, int n1, int n2, int n3, int64_t s0, int64_t s1,
              int64_t s2, int64_t s3, int d0, int d1, int d2, int d3,
-             int clip) {
+             int clip, int wmax, int64_t align) {
   Box b{{s0, s1, s2, s3}, {n0, n1, n2, n3}, {d0, d1, d2, d3}, {0, 0, 0, 0},
-        clip};
+        clip, 1};
   int fast = 3;
   for (int k = 0; k < 3; ++k)
     if (b.n[k] > 1 && (b.n[fast] == 1 || llabs(b.s[k]) < llabs(b.s[fast])))
@@ -420,6 +820,20 @@ Box make_box(int n0, int n1, int n2, int n3, int64_t s0, int64_t s1,
     t = b.d[fast]; b.d[fast] = b.d[3]; b.d[3] = t;
     b.clip = clip == fast ? 3 : clip == 3 ? fast : clip;
   }
+  if (b.s[3] == 1 && b.d[3] == 1) {
+    for (int v = wmax; v > 1; v /= 2) {
+      bool ok = b.n[3] % v == 0 && align % v == 0;
+      for (int k = 0; k < 3; ++k)
+        ok = ok && (b.n[k] == 1 || (b.s[k] % v == 0 && b.d[k] % v == 0));
+      if (ok) {
+        b.vec = v;
+        b.n[3] /= v;
+        b.s[3] *= v;
+        b.d[3] *= v;
+        break;
+      }
+    }
+  }
   int q = kThreads;
   for (int k = 3; k > 0; --k) {
     b.step[k] = q % b.n[k];
@@ -429,100 +843,74 @@ Box make_box(int n0, int n1, int n2, int n3, int64_t s0, int64_t s1,
   return b;
 }
 
-// Lay out shared memory for A tile ta and c chunk kc; false when the output
-// tiles exceed one per thread or the buffers exceed 227 KB.
-template <typename T, typename C>
-bool layout(const Meta& m, int ta, int kc, Plan& p) {
-  p.ta = ta;
-  p.kc = kc;
-  p.ldE = lead(round_up(m.nn * kc * m.nm, C::TM));
-  p.ldT = lead(round_up(m.nu * ta, C::TN));
-  p.ld1 = lead(round_up(m.nn * kc * ta, C::TM));
-  p.ldR1 = lead(round_up(m.nd * m.nr, C::TN));
-  p.ld2 = lead(round_up(kc * ta * m.nr, C::TM));
-  p.ldR2 = lead(round_up(m.ne * m.nf, C::TN));
-  p.ld3 = lead(round_up(ta * m.nr * m.nf, C::TM4));
-  p.ldB = lead(round_up(m.nC, C::TN4));
-  p.szE = m.na * p.ldE;
-  p.szB = kc * m.ne * p.ldB;
-  p.oR1 = 0;
-  p.oR2 = p.oR1 + m.nu * m.nm * p.ldR1;
-  p.oT = p.oR2 + m.nd * m.nn * p.ldR2;
-  p.oE = p.oT + m.na * p.ldT;
-  p.oB = p.oE + 2 * p.szE;
-  p.oX1 = p.oB + 2 * p.szB;
-  const int x1 = m.nu * m.nm * p.ld1 > kc * m.ne * p.ld3
-                     ? m.nu * m.nm * p.ld1 : kc * m.ne * p.ld3;
-  p.oX2 = p.oX1 + x1;
-  p.smem = sizeof(T) * static_cast<size_t>(p.oX2 + m.nd * m.nn * p.ld2);
-  return tiles(ta * m.nr * m.nf, C::TM4, m.nC, C::TN4) <= kThreads &&
-         p.smem <= kSmemLimit;
+// The gcd of the batch strides an operand moves by (its per-item offsets).
+int64_t batch_gcd(const Meta& m, const int64_t* strides) {
+  int64_t g = 0;
+  for (int k = 0; k < kMaxBatch; ++k)
+    if (m.nb[k] > 1) g = gcd64(g, strides[k]);
+  return g;
 }
 
-template <typename T, typename C>
-bool plan_for(const Meta& m, Plan& p) {
-  int ta = m.nA < C::TA ? m.nA : C::TA;
-  int kc = m.nc < C::KC ? m.nc : C::KC;
-  while (!layout<T, C>(m, ta, kc, p)) {
-    if (tiles(ta * m.nr * m.nf, C::TM4, m.nC, C::TN4) > kThreads && ta > 1)
-      ta = cdiv(ta, 2);
-    else if (kc > 1) kc = cdiv(kc, 2);
-    else if (ta > 1) ta = cdiv(ta, 2);
-    else return false;
-  }
-  p.n_split = cdiv(m.nA, ta);
-  p.ctas = batch_items(m) * p.n_split;
+template <typename T>
+Boxes make_boxes(const Meta& m, const Plan& p, const T* env, const T* top,
+                 const T* row1, const T* row2, const T* bot) {
+  constexpr int W = 16 / sizeof(T);
+  auto base = [](const void* ptr) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(ptr);
+    return a % sizeof(T) ? int64_t(1) : int64_t(a / sizeof(T));
+  };
   const int64_t* se = m.se + kMaxBatch;
   const int64_t* st = m.st + kMaxBatch;
   const int64_t* s1 = m.s1 + kMaxBatch;
   const int64_t* s2 = m.s2 + kMaxBatch;
   const int64_t* sb = m.sb + kMaxBatch;
-  // E[a][(n*kc + c')*nm + m] = env[a, m, n, c0 + c']
-  p.bE = make_box(m.na, m.nm, m.nn, kc, se[0], se[1], se[2], se[3], p.ldE, 1,
-                  kc * m.nm, m.nm, 3);
+  const int ta = p.ta, kc = p.kc;
+  Boxes bx;
+  // E[a][n*zn + m*kl + c''] = env[a, m, n, c0 + c'']
+  bx.e = make_box(m.na, m.nm, m.nn, p.kl, se[0], se[1], se[2], se[3], p.ldE,
+                  p.kl, p.zn, 1, 3, W,
+                  gcd64(gcd64(base(env), batch_gcd(m, m.se)), p.kl * se[3]));
   // B[c'*ne + e][C] = bot[c0 + c', e, C]
-  p.bB = make_box(1, kc, m.ne, m.nC, 0, sb[0], sb[1], sb[2], 0, m.ne * p.ldB,
-                  p.ldB, 1, 1);
+  bx.b = make_box(1, kc, m.ne, m.nC, 0, sb[0], sb[1], sb[2], 0, m.ne * p.ldB,
+                  p.ldB, 1, 1, W,
+                  gcd64(gcd64(base(bot), batch_gcd(m, m.sb)), kc * sb[0]));
   // Ts[a][u*ta + A'] = top[a, u, A0 + A']
-  p.bT = make_box(1, m.na, m.nu, ta, 0, st[0], st[1], st[2], 0, p.ldT, ta, 1,
-                  3);
-  p.bR1 = make_box(m.nu, m.nm, m.nd, m.nr, s1[0], s1[1], s1[2], s1[3],
-                   m.nm * p.ldR1, p.ldR1, m.nr, 1, -1);
-  p.bR2 = make_box(m.nd, m.nn, m.ne, m.nf, s2[0], s2[1], s2[2], s2[3],
-                   m.nn * p.ldR2, p.ldR2, m.nf, 1, -1);
-  return true;
-}
-
-template <typename T>
-bool make_plan(const Meta& m, Plan& p) {
-  if constexpr (sizeof(T) == 8) return plan_for<T, F64Cfg>(m, p);
-  else return plan_for<T, F32Cfg>(m, p);
+  bx.t = make_box(1, m.na, m.nu, ta, 0, st[0], st[1], st[2], 0, p.ldT, ta, 1,
+                  3, W,
+                  gcd64(gcd64(base(top), batch_gcd(m, m.st)), ta * st[2]));
+  bx.r1 = make_box(m.nu, m.nm, m.nd, m.nr, s1[0], s1[1], s1[2], s1[3],
+                   m.nm * p.ldR1, p.ldR1, m.nr, 1, -1, W,
+                   gcd64(base(row1), batch_gcd(m, m.s1)));
+  bx.r2 = make_box(m.nd, m.nn, m.ne, m.nf, s2[0], s2[1], s2[2], s2[3],
+                   m.nn * p.ldR2, p.ldR2, m.nf, 1, -1, W,
+                   gcd64(base(row2), batch_gcd(m, m.s2)));
+  return bx;
 }
 
 constexpr int kMaxDevices = 64;
 
-template <typename T, typename C>
-int launch_cfg(const T* env, const T* top, const T* row1, const T* row2,
-               const T* bot, T* out, const Meta& m, const Plan& p,
-               cudaStream_t stream) {
+// Once per (instantiation, device): the kernel may take the whole 227 KB,
+// and the SM keeps its largest shared-memory carveout.
+template <typename T>
+int prepare() {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidDevice);
-  // once per (instantiation, device), not per launch
-  static bool attr_set[kMaxDevices] = {};
-  if (!attr_set[dev]) {
-    err = cudaFuncSetAttribute(pair_transfer_kernel<T, C>,
+  static bool done[kMaxDevices] = {};
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(pair_transfer_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kSmemLimit));
     if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set[dev] = true;
+    err = cudaFuncSetAttribute(pair_transfer_kernel<T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               static_cast<int>(cudaSharedmemCarveoutMaxShared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    done[dev] = true;
   }
-  pair_transfer_kernel<T, C><<<static_cast<unsigned>(p.ctas), kThreads,
-                               p.smem, stream>>>(env, top, row1, row2, bot,
-                                                 out, m, p);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaSuccess);
 }
 
 template <typename T>
@@ -533,14 +921,35 @@ int launch(const T* env, const T* top, const T* row1, const T* row2,
       m.nC == 0)
     return static_cast<int>(cudaSuccess);
   Plan p;
-  if (!make_plan<T>(m, p) || p.ctas >= (int64_t(1) << 31))
+  if (!unpack_plan(meta + kMetaInts, p) || !check_plan<T>(m, p))
     return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (sizeof(T) == 8)
-    return launch_cfg<T, F64Cfg>(env, top, row1, row2, bot, out, m, p,
-                                 stream);
-  else
-    return launch_cfg<T, F32Cfg>(env, top, row1, row2, bot, out, m, p,
-                                 stream);
+  const int64_t ctas = batch_items(m) * cdiv(m.nA, p.ta);
+  if (ctas >= (int64_t(1) << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = prepare<T>();
+  if (err != 0) return err;
+  const Boxes bx = make_boxes<T>(m, p, env, top, row1, row2, bot);
+  pair_transfer_kernel<T><<<static_cast<unsigned>(ctas), kThreads, p.smem,
+                            stream>>>(env, top, row1, row2, bot, out, m, p,
+                                      bx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int attributes(int64_t smem, int64_t* out) {
+  int err = prepare<T>();
+  if (err != 0) return err;
+  cudaFuncAttributes attr;
+  err = static_cast<int>(cudaFuncGetAttributes(&attr, pair_transfer_kernel<T>));
+  if (err != 0) return err;
+  int ctas = 0;
+  err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, pair_transfer_kernel<T>, kThreads, static_cast<size_t>(smem)));
+  if (err != 0) return err;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int64_t>(attr.localSizeBytes);
+  out[2] = ctas;
+  return 0;
 }
 
 }  // namespace
@@ -562,19 +971,12 @@ int pair_transfer_f64(const double* env, const double* top,
                         static_cast<cudaStream_t>(stream));
 }
 
-// The plan a call with this meta takes: plan[0..3] = A tile, c chunk, CTAs,
-// shared bytes.
-int pair_transfer_plan(const int64_t* meta, int elem_bytes, int64_t* plan) {
-  const Meta m = unpack(meta);
-  Plan p;
-  const bool ok = elem_bytes == 8 ? make_plan<double>(m, p)
-                                  : make_plan<float>(m, p);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  plan[0] = p.ta;
-  plan[1] = p.kc;
-  plan[2] = p.ctas;
-  plan[3] = static_cast<int64_t>(p.smem);
-  return 0;
+// The compiled kernel of one dtype at a plan's shared bytes: out[0..2] =
+// registers a thread, local (spill) bytes a thread, CTAs an SM holds.
+int pair_transfer_attributes(int elem_bytes, int64_t smem_bytes,
+                             int64_t* out) {
+  return elem_bytes == 8 ? attributes<double>(smem_bytes, out)
+                         : attributes<float>(smem_bytes, out);
 }
 
 }  // extern "C"

@@ -53,10 +53,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
-    for name in ("col_transfer_plan", "pair_transfer_plan"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ctypes.c_int, ptr]
-        fn.restype = ctypes.c_int
+    lib.col_transfer_plan.argtypes = [ptr, ctypes.c_int, ptr]
+    lib.col_transfer_plan.restype = ctypes.c_int
+    lib.pair_transfer_attributes.argtypes = [ctypes.c_int, ctypes.c_int64,
+                                             ptr]
+    lib.pair_transfer_attributes.restype = ctypes.c_int
     for name in ("centered_o_f32", "centered_o_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr]

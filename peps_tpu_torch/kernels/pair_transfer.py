@@ -13,13 +13,18 @@ operands broadcast against each other (at most four of them after
 merging); a broadcast operand is read with batch stride 0, never copied.
 
 On a CPU tensor :func:`pair_transfer` runs the plain version. On a CUDA
-tensor it launches the hand-written kernel (``csrc/pair_transfer.cu``) or
-raises; there is no fallback. The launch meta (sizes and strides) is cached
-per operand signature (:func:`launch_meta`).
+tensor it launches the hand-written kernel (``csrc/pair_transfer.cu``: f64
+on the DMMA tensor cores, f32 on the FP32 CUDA cores at two CTAs an SM) or
+raises; there is no fallback. :func:`pair_transfer_plan` is the kernel's
+launch plan, in Python so that the CPU tests can check it; the kernel
+checks the plan it is given and refuses one it cannot run. The launch meta
+(sizes, strides and plan) is cached per operand signature
+(:func:`launch_meta`).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -27,6 +32,21 @@ from peps_tpu_torch.kernels.col_transfer import MAX_BATCH, _merge_batch
 
 # trailing (non-batch) dims of env, top, row1, row2, bot
 _NDIMS = (4, 3, 4, 4, 3)
+DIM_NAMES = ("na", "nm", "nn", "nc", "nu", "nA", "nd", "nr", "ne", "nf",
+             "nC")
+
+THREADS = 256
+WARPS = THREADS // 32
+SMEM_PER_BLOCK = 232448            # 227 KB a CTA may use
+SMEM_PER_SM = 233472               # 228 KB an SM holds
+SMEM_RESERVED_PER_CTA = 1024       # the runtime's share of each CTA
+SMEM_TWO_CTAS = SMEM_PER_SM // 2 - SMEM_RESERVED_PER_CTA
+A_TILE, C_CHUNK = 4, 2             # the largest tiles the plan takes
+META_INTS = MAX_BATCH + 3 * (MAX_BATCH + 4) + 2 * (MAX_BATCH + 3) + 11
+# the kernel's plan fields, in the order it reads them after the meta
+PLAN_KEYS = ("ta", "kc", "kl", "zn", "sw", "ldE", "ldT", "ldR1", "ldR2",
+             "ld1", "ld2", "ld3", "ldB", "oR1", "oR2", "oT", "oE", "oB", "oX1",
+             "oX2", "oX3", "szE", "szB", "oTab", "smem_bytes")
 
 
 def pair_transfer_plain(env, top, row1, row2, bot):
@@ -36,6 +56,157 @@ def pair_transfer_plain(env, top, row1, row2, bot):
     t = torch.einsum("...mncuA,...umdr->...ncAdr", t, row1)
     t = torch.einsum("...ncAdr,...dnef->...cAref", t, row2)
     return torch.einsum("...cAref,...ceC->...ArfC", t, bot)
+
+
+def _cdiv(x, m):
+    return -(-x // m)
+
+
+def _up(x, m):
+    return _cdiv(x, m) * m
+
+
+def _ld(need, mod, rem):
+    """The least leading dim >= need that is rem modulo mod."""
+    return need + (rem - need) % mod
+
+
+def _step4_fits(ta, nr, nf, nc_, mma):
+    """Whether step 4's output tile (ta nr nf x nC) fits one tile per thread
+    (f32, 4 x 8 each, laid out as the kernel's tile_of) or one 32 x 32 tile
+    per warp (f64)."""
+    m4 = ta * nr * nf
+    if mma:
+        return _cdiv(m4, 32) * _cdiv(nc_, 32) <= WARPS
+    return _up(_cdiv(m4, 4), 8) * _up(_cdiv(nc_, 8), 4) <= THREADS
+
+
+def _layout(dims, ta, kc, mma):
+    """Shared-memory layout for A tile ta and c chunk kc (elements, the
+    table offset and total in bytes). env is copied after step 1 into one
+    buffer, kl = 4 values of c at a time when kc = 2 (16 bytes a copy in
+    f32, 32 in f64, serving two chunks; f32 also needs nm even, as step 1
+    reads the c' pairs of two m), else kl = kc. In f32 its n blocks lie 4
+    floats further apart than nm kl, so that step 1's two 8-byte loads hit
+    distinct banks at D = 8; in f64 (nm a multiple of 4) step 1's rows are
+    taken with bits 1 and 2 swapped (sw) and env's leading dim is 2 mod 16
+    doubles, so that its fragment loads do. f64: every other leading
+    dim is 4 mod 16 doubles, so the DMMA fragment loads (row lane >> 2, k
+    lane & 3) hit 32 distinct banks, and K is padded to 4. f32: T1's and
+    T2's leading dims are 4 mod 8 floats and T3's 8 mod 32: at chi = 32,
+    D = 8 every quarter-warp's 16-byte store in steps 1-3 then lands on 8
+    distinct bank groups."""
+    na, nm, nn, nc, nu, nA, nd, nr, ne, nf, nC = dims
+    item = 8 if mma else 4
+    w = 16 // item
+    kq = 4 if mma else 1
+    kl = 4 if kc == 2 and (mma or nm % 2 == 0) else kc
+    zn = nm * kl + (4 if kl != kc and not mma else 0)
+    sw = int(mma and kl != kc and nm % 4 == 0)
+
+    def kp(x):
+        return _up(x, kq)
+
+    def wx(x):                  # columns a product reads of its X operand
+        return _up(x, 32 if mma else 4)
+
+    def wy(x, last=False):      # ... and of its Y operand
+        return _up(x, (32 if last else 16) if mma else (8 if last else 4))
+
+    def lead(need, mod=16, rem=4):
+        return _ld(need, 16, 4) if mma else _ld(need, mod, rem)
+
+    need_e = _cdiv(wx(nn * kc * nm) // kc, nm) * zn
+    lay = {"ta": ta, "kc": kc, "kl": kl, "zn": zn, "sw": sw,
+           "ldE": _ld(need_e, 16, 2) if sw else lead(need_e, 4, 0),
+           "ldT": lead(wy(nu * ta), 4, 0),
+           "ldR1": lead(wy(nd * nr), 4, 0),
+           "ldR2": lead(wx(ne * nf), 4, 0),
+           "ld1": lead(wx(nn * kc * ta), 8, 4),
+           "ld2": lead((wx if mma else wy)(kc * ta * nr), 8, 4),
+           "ld3": lead(wx(ta * nr * nf), 32, 8),
+           "ldB": lead(wy(nC, last=True), 4, 0)}
+    x1 = kp(nu * nm) * lay["ld1"]
+    x3 = kp(kc * ne) * lay["ld3"]
+    share13 = not mma or ((nu * nm) % kq == 0 and (kc * ne) % kq == 0)
+    lay["szE"] = _up(kp(na) * lay["ldE"], w)
+    lay["szB"] = _up(kp(kc * ne) * lay["ldB"], w)
+    sizes = (("oR1", kp(nu * nm) * lay["ldR1"]),
+             ("oR2", kp(nd * nn) * lay["ldR2"]),
+             ("oT", kp(na) * lay["ldT"]),
+             ("oE", lay["szE"]),
+             ("oB", 2 * lay["szB"]),
+             ("oX1", max(x1, x3) if share13 else x1),
+             ("oX2", kp(nd * nn) * lay["ld2"]),
+             ("oX3", 0 if share13 else x3))
+    end = 0
+    for key, n in sizes:
+        lay[key] = end
+        end = _up(end + n, w)
+    if share13:
+        lay["oX3"] = lay["oX1"]
+    tab = (nn * kc * nm + nu * ta + nn * kc * ta + nd * nr + ne * nf
+           + kc * ta * nr)
+    lay["oTab"] = _up(end * item, 16)
+    lay["smem_bytes"] = _up(lay["oTab"] + 4 * tab, 16)
+    lay["t3_shares_t1"] = share13
+    return lay
+
+
+def pair_transfer_plan(dims, dtype, items=1):
+    """The kernel's launch plan for sizes ``dims`` = (na, nm, nn, nc, nu,
+    nA, nd, nr, ne, nf, nC) of ``dtype`` and ``items`` batch items: one CTA
+    of 256 threads per (item, tile of ``ta`` values of A), env and bot
+    streamed in chunks of ``kc`` values of c. It takes the largest tiles
+    (ta <= 4, kc <= 2) whose layout fits; f32 first within two CTAs an SM
+    (``SMEM_TWO_CTAS``), then within one. Raises TypeError for a dtype the
+    kernel does not take, ValueError for empty sizes and RuntimeError when
+    no plan fits shared memory. ``smem_ctas_per_sm`` is what shared memory
+    allows (the card-side diagnostic reports what the compiled kernel
+    reaches)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the CUDA pair_transfer takes float32/float64, got "
+                        f"{dtype} (complex support comes with fermions)")
+    dims = tuple(int(x) for x in dims)
+    if len(dims) != len(DIM_NAMES) or min(dims) < 1:
+        raise ValueError(f"pair_transfer plan of sizes {dims}: needs "
+                         f"{len(DIM_NAMES)} sizes >= 1 {DIM_NAMES}")
+    mma = dtype == torch.float64
+    na, nm, nn, nc, nu, nA, nd, nr, ne, nf, nC = dims
+    budgets = (SMEM_PER_BLOCK,) if mma else (SMEM_TWO_CTAS, SMEM_PER_BLOCK)
+    for budget in budgets:
+        ta, kc = min(nA, A_TILE), min(nc, C_CHUNK)
+        while True:
+            fits = _step4_fits(ta, nr, nf, nC, mma)
+            lay = _layout(dims, ta, kc, mma)
+            if fits and lay["smem_bytes"] <= budget:
+                return _finish(lay, dims, dtype, items)
+            if not fits and ta > 1:
+                ta = _cdiv(ta, 2)
+            elif kc > 1:
+                kc = _cdiv(kc, 2)
+            elif ta > 1:
+                ta = _cdiv(ta, 2)
+            else:
+                break
+    raise RuntimeError(f"no pair_transfer plan fits {dtype} sizes "
+                       f"{dict(zip(DIM_NAMES, dims))} in "
+                       f"{SMEM_PER_BLOCK} bytes of shared memory")
+
+
+def _finish(lay, dims, dtype, items):
+    nA, nc = dims[5], dims[3]
+    a_tiles = _cdiv(nA, lay["ta"])
+    ctas = items * a_tiles
+    if ctas >= 2 ** 31:
+        raise ValueError(f"pair_transfer grid of {ctas} CTAs exceeds "
+                         f"2^31 - 1")
+    mma = dtype == torch.float64
+    smem_ctas = SMEM_PER_SM // (lay["smem_bytes"] + SMEM_RESERVED_PER_CTA)
+    return {**lay, "dtype": dtype, "dims": dims, "items": items,
+            "body": "dmma_m8n8k4_f64" if mma else "simt_fma_f32",
+            "a_tiles": a_tiles, "c_chunks": _cdiv(nc, lay["kc"]),
+            "ctas": ctas, "smem_ctas_per_sm": min(smem_ctas, 1 if mma else 2)}
 
 
 def _meta(ops, batch):
@@ -51,14 +222,22 @@ def _meta(ops, batch):
     meta = [1] * pad + shape
     for o, bs in zip(full, bstrides):
         meta += [0] * pad + bs + list(o.stride()[nb:])
-    env, top, row1, row2, bot = ops
+    dims = pair_dims(*ops)
+    meta += list(dims)
+    items = math.prod(batch)
+    if items * dims[5] * dims[7] * dims[9] * dims[10] > 0:
+        plan = pair_transfer_plan(dims, ops[0].dtype, items)
+        meta += [plan[k] for k in PLAN_KEYS]
+    return meta
+
+
+def pair_dims(env, top, row1, row2, bot):
+    """The transfer's sizes (na, nm, nn, nc, nu, nA, nd, nr, ne, nf, nC)."""
     na, nm, nn, nc = env.shape[-4:]
     nu, nA = top.shape[-2:]
     nd, nr = row1.shape[-2:]
     ne, nf = row2.shape[-2:]
-    nC = bot.shape[-1]
-    meta += [na, nm, nn, nc, nu, nA, nd, nr, ne, nf, nC]
-    return meta
+    return (na, nm, nn, nc, nu, nA, nd, nr, ne, nf, bot.shape[-1])
 
 
 def _check_operands(ops):
@@ -92,7 +271,9 @@ _META_CACHE_MAX = 4096
 def launch_meta(env, top, row1, row2, bot):
     """(batch shape, ctypes meta array) of a kernel call, cached per
     (shapes, strides, dtype, device) signature: a hit skips the checks, the
-    broadcast and the meta rebuild."""
+    broadcast, the plan and the meta rebuild. The meta is the batch sizes,
+    the strides and the sizes (META_INTS values), then the plan's PLAN_KEYS
+    values; an empty output has no plan and is never launched."""
     ops = (env, top, row1, row2, bot)
     key = tuple((o.shape, o.stride(), o.dtype, o.device) for o in ops)
     hit = _META_CACHE.get(key)
@@ -132,21 +313,25 @@ def pair_transfer(env, top, row1, row2, bot):
     return out
 
 
-def pair_transfer_plan(env, top, row1, row2, bot):
-    """The launch plan the kernel takes for these operands (CUDA only; a
-    diagnostic read of the launch's own plan rule, nothing depends on it):
-    dict(a_tile, c_chunk, ctas, smem_bytes)."""
-    from peps_tpu_torch.kernels._build import check, cuda_library
-    _, meta = launch_meta(env, top, row1, row2, bot)
-    plan = (ctypes.c_int64 * 4)()
-    with torch.cuda.device(env.device):
-        check(cuda_library().lib.pair_transfer_plan(meta, env.element_size(),
-                                                    plan))
-    return {"a_tile": plan[0], "c_chunk": plan[1], "ctas": plan[2],
-            "smem_bytes": plan[3]}
-
-
 pair_transfer.launches = 0
+
+
+def pair_transfer_diagnostic(env, top, row1, row2, bot):
+    """The plan a launch on these operands takes, with what the compiled
+    kernel reaches at its shared bytes (CUDA only; nothing depends on it):
+    regs_per_thread, spill_bytes (local memory a thread) and ctas_per_sm
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    from peps_tpu_torch.kernels._build import check, cuda_library
+    batch, _ = launch_meta(env, top, row1, row2, bot)
+    plan = pair_transfer_plan(pair_dims(env, top, row1, row2, bot),
+                              env.dtype, math.prod(batch))
+    attrs = (ctypes.c_int64 * 3)()
+    with torch.cuda.device(env.device):
+        check(cuda_library().lib.pair_transfer_attributes(
+            env.element_size(), plan["smem_bytes"], attrs))
+    keys = ("ta", "kc", "ctas", "smem_bytes", "body", "smem_ctas_per_sm")
+    return {**{k: plan[k] for k in keys}, "regs_per_thread": attrs[0],
+            "spill_bytes": attrs[1], "ctas_per_sm": attrs[2]}
 
 
 def pair_transfer_right(renv, top, row1, row2, bot, transfer=pair_transfer):

@@ -396,15 +396,18 @@ def test_vmc_optimize_minsr_and_adam_on_the_card(dev, algo):
 
 def pair_operands(dev, dtype, gen, case):
     """K3 operands: "small" (chi 5, D 2, c 7: partial chunks and A tiles),
-    or the main path's two shapes at 8x8, D=8, chi=32, 32 chains: "env_step"
-    (the BTen2 scan step of energy._pair_row_envs, 32 x 7 row pairs) and
-    "diag_block" (the diagonal block, 32 x 7 x 7 bonds x 2 candidates, with
-    env, top, row2 and bot broadcast over the candidate axis and the
-    candidate sites shared by the chains)."""
+    "odd" (chi 6, D 3, c 5: no size a multiple of the f64 body's 8 x 8 x 4
+    MMA tiles, so its zero-filled padding is read), or the main path's
+    shapes at 8x8, D=8, chi=32, 32 chains: "env_step" (the BTen2 scan step
+    of energy._pair_row_envs, 32 x 7 row pairs), "diag_block" (the diagonal
+    block, 32 x 7 x 7 bonds x 2 candidates, with env, top, row2 and bot
+    broadcast over the candidate axis and the candidate sites shared by the
+    chains) and "antidiag_block" (the anti-diagonal block: the candidates on
+    row2, row1 broadcast over them)."""
     def r(*shape):
         return _r(gen, dev, dtype, *shape)
-    if case == "small":
-        chi, D, c = 5, 2, 7
+    if case in ("small", "odd"):
+        chi, D, c = (5, 2, 7) if case == "small" else (6, 3, 5)
         return (r(3, chi, D, D, c), r(3, chi, D, chi), r(D, D, D, D),
                 r(3, D, D, D, D), r(c, D, c))
     chi, D, nc, pairs, lx, d = 32, 8, 32, 7, 8, 2
@@ -413,14 +416,16 @@ def pair_operands(dev, dtype, gen, case):
                 r(nc, pairs, D, D, D, D), r(nc, pairs, D, D, D, D),
                 r(nc, pairs, chi, D, chi))
     nb = lx - 1
+    cands, row = r(pairs, nb, d, D, D, D, D), r(nc, pairs, nb, 1, D, D, D, D)
+    row1, row2 = (cands, row) if case == "diag_block" else (row, cands)
     return (r(nc, pairs, nb, 1, chi, D, D, chi), r(nc, pairs, nb, 1, chi, D,
                                                      chi),
-            r(pairs, nb, d, D, D, D, D), r(nc, pairs, nb, 1, D, D, D, D),
-            r(nc, pairs, nb, 1, chi, D, chi))
+            row1, row2, r(nc, pairs, nb, 1, chi, D, chi))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", ["small", "env_step", "diag_block"])
+@pytest.mark.parametrize("case", ["small", "odd", "env_step", "diag_block",
+                                  "antidiag_block"])
 def test_pair_transfer_left_and_right(dev, dtype, case):
     gen = torch.Generator(device=dev).manual_seed(len(case))
     ops = pair_operands(dev, dtype, gen, case)

@@ -110,7 +110,8 @@ def test_pair_transfer_meta_of_the_diagonal_block():
     bstrides = [list(meta[i:i + 4]) for i in starts]
     assert [b[3] for b in bstrides] == [0, 0, D ** 4, 0, 0]   # candidates
     assert bstrides[2][0] == 0                                # no chain axis
-    assert list(meta[-11:]) == [chi, D, D, chi, D, chi, D, D, D, D, chi]
+    n = k3.META_INTS               # sizes, then the launch plan
+    assert list(meta[n - 11:n]) == [chi, D, D, chi, D, chi, D, D, D, D, chi]
     assert k3.launch_meta(*ops) is k3.launch_meta(*ops)
     right = (ops[0],) + tuple(o.transpose(-3, -1) for o in ops[1:])
     k3.launch_meta(*right)

@@ -79,7 +79,7 @@ def test_kernel_sources_ship_in_csrc():
                                              "centered_o_f64")),
                           ("pair_transfer.cu", ("pair_transfer_f32",
                                                 "pair_transfer_f64",
-                                                "pair_transfer_plan"))):
+                                                "pair_transfer_attributes"))):
         text = (REPO / "peps_tpu_torch" / "csrc" / name).read_text()
         assert 'extern "C"' in text and all(s in text for s in symbols)
     k2_text = (REPO / "peps_tpu_torch" / "kernels" / "centered_o.py") \
