@@ -74,6 +74,26 @@ Phases, one line each (failures exit non-zero before the last line):
      triangle_j1j2_heisenberg(1, 0.5) and of J1 plus 0.25 J1 on the
      third neighbours in both directions. Checks: finite energies, K1, K2
      and K3 launched.
+  8. the rest of the bosonic OBC surface (bosonic_rest), at the main
+     path's width, each step with the launch counters at 0: the J1-J2
+     state from simple_update_nnn (j1j2_xxz(1, 1, 0.5, 0.5) from the Neel
+     state, tau 0.1, 40 steps; seconds, e0 per site and truncation error
+     per step), then to_tps and 2 SR iterations from it (E/site in (-0.60,
+     -0.35), beside phase 7's from the Heisenberg state); the triangular
+     state from simple_update_triangle (triangle_j1j2_heisenberg(1, 0.5),
+     20 steps) and one energy-only evaluation of it, below the product
+     state's energy; on the J1-J2 state the ratio-table energy against
+     local_energy_and_holes (< 1e-4 relative) and the Jastrow-dressed
+     energy (v = 0 equal to the undressed in value, a small seeded v
+     finite); two mc_sweep_3site sweeps of the 32 chains (seconds,
+     acceptance, every chain's Sz kept); psi_consistency_check and the
+     entanglement entropy of a boundary MPS's middle cut; on the main
+     path's state and 16 configurations the local energies under var2,
+     var1 and fast against svd (< 1e-2 relative), then one energy-only
+     evaluation per scheme of 16 of the chains (the svd-based schemes'
+     batched SVDs are slow on cuSOLVER). Checks: those limits, K1, K2 and
+     K3 launched.
+Each phase ends with a phase_end line holding its wall seconds.
 Phase 2 also holds K1 at the walker's shape (2048 items, top, bot and site
 broadcast over the start column), and K3 (pair_transfer) at the J1-J2
 path's shapes and forms: the BTen2 scan step (224 items) in the left and
@@ -109,6 +129,14 @@ MINSR_LR = 0.02            # phase 6 learning rates (the main path's SR: 0.05)
 ADAM_LR = 1e-4             # Adam moves every parameter by about lr at first
 ADAM_CLIP = 1.0
 LBFGS_LR = 1e-3            # the strong-Wolfe search's first trial step
+NNN_SU_STEPS = 40          # phase 8: the J1-J2 state's cluster update
+TRI_SU_STEPS = 20          # phase 8: the triangular state's
+GATE_CONFIGS = 16          # configurations of the scheme gates
+# phase 8's energy-only evaluation per scheme takes 16 of the 32 chains:
+# an absorb of the svd-based schemes runs 14-42 batched SVDs of 256 x 256
+# at about 7 ms a matrix on cuSOLVER, so var2 takes 4 s an absorb
+SCHEME_EVAL_CHAINS = 16
+SWEEPS_3SITE = 2
 TOL = {"float32": 1e-5, "float64": 1e-12}
 HBM_BPS = 3.35e12          # H100 SXM device memory rate (data sheet)
 EINSUM_1CALL = "...alc,...auA,...uldr,...cdC->...ArC"
@@ -522,7 +550,7 @@ def k2_case(k2, case, dtype, device, gen):
 
 def phase_main_path(device):
     """Phase 3: SU -> to_tps -> vmc_optimize(SR), through the entry points.
-    Returns (result, tps, launches)."""
+    Returns (result, launches, SU seconds per step)."""
     import numpy as np
     import torch
     from peps_tpu_torch.algorithm.mc_evaluator import MCParams
@@ -590,11 +618,12 @@ def phase_main_path(device):
     for name, count in launches.items():
         if count == 0:
             fail(f"kernel {name} was not launched on the main path")
-    return res, launches
+    return res, launches, (t_su - t0) / SU_STEPS
 
 
 def phase_gate(res):
-    """Phase 4: sketch vs svd local energies on 16 sampled configurations."""
+    """Phase 4: sketch vs svd local energies on 16 sampled configurations.
+    Returns the svd ones."""
     import torch
     from peps_tpu_torch.algorithm.energy import (ModelTensors,
                                                  local_energy_and_holes)
@@ -602,7 +631,7 @@ def phase_gate(res):
     from peps_tpu_torch.models import spin
 
     tps = res.state
-    cfgs = res.final_configs[:16]
+    cfgs = res.final_configs[:GATE_CONFIGS]
     mt = ModelTensors.from_model(spin.heisenberg(), tps.dtype, tps.device)
     t0 = time.perf_counter()
     e = {}
@@ -619,6 +648,7 @@ def phase_gate(res):
         accuracy_rel_diff_sketch_vs_svd=gate, seconds=time.perf_counter() - t0)
     if not (gate < 1e-2) or not bool(finite.all()):
         fail(f"sketch-vs-svd gate {gate} (non-finite {int((~finite).sum())})")
+    return e["svd"]
 
 
 def nn_mean(corr):
@@ -996,8 +1026,8 @@ def kernel_counts():
             "pair_transfer": pair_transfer}
 
 
-def j1j2_step(device, name, fn):
-    """Run one step of phase 7 with every launch counter at 0 and the peak
+def counted_step(device, phase, name, fn):
+    """Run one step of a phase with every launch counter at 0 and the peak
     memory counter reset; log its seconds, launches and peak memory.
     Returns (fn's result, launches)."""
     import torch
@@ -1010,7 +1040,7 @@ def j1j2_step(device, name, fn):
     out = fn()
     torch.cuda.synchronize()
     launches = {n: k.launches for n, k in kernels.items()}
-    log("j1j2", step=name, seconds=time.perf_counter() - t0,
+    log(phase, step=name, seconds=time.perf_counter() - t0,
         launches=launches,
         peak_mem_GB=torch.cuda.max_memory_allocated(device) / 1e9)
     return out, launches
@@ -1047,11 +1077,11 @@ def phase_j1j2(res, device):
 
     # 1. the vertical bonds through the two-row sandwiches (pair pass)
     # against the transposed frame, on the same configurations
-    e_pair, launches = j1j2_step(device, "route_pair",
-                                 lambda: e_loc(spin.j1j2_xxz(1, 1, 0, 0)))
+    e_pair, launches = counted_step(device, "j1j2", "route_pair",
+                                    lambda: e_loc(spin.j1j2_xxz(1, 1, 0, 0)))
     add(launches)
-    e_t, launches = j1j2_step(device, "route_transposed",
-                              lambda: e_loc(spin.heisenberg()))
+    e_t, launches = counted_step(device, "j1j2", "route_transposed",
+                                 lambda: e_loc(spin.heisenberg()))
     add(launches)
     mean_rel = abs((e_pair.mean() - e_t.mean()) / e_t.mean()).item()
     per_cfg = ((e_pair - e_t).abs() / e_t.abs().clamp(min=1e-12)).max().item()
@@ -1070,8 +1100,8 @@ def phase_j1j2(res, device):
                              nchains=NCHAINS),
         OptimizerParams(2, SRParams(CGParams(30, 1e-5), diag_shift=1e-3),
                         lr=0.05))
-    out, launches = j1j2_step(
-        device, "vmc_sr", lambda: vmc_optimize(
+    out, launches = counted_step(
+        device, "j1j2", "vmc_sr", lambda: vmc_optimize(
             state, model, params, torch.Generator(device=device).manual_seed(8),
             configs=cfgs, callback=lambda rec, st: recs.append(rec)))
     add(launches)
@@ -1089,8 +1119,8 @@ def phase_j1j2(res, device):
                            num_warmup_sweeps=0, nchains=NCHAINS,
                            chunk_size=MEASURE_CHUNK,
                            measure_offdiag_corr=False)
-    meas, launches = j1j2_step(
-        device, "measure", lambda: measure(
+    meas, launches = counted_step(
+        device, "j1j2", "measure", lambda: measure(
             out.state, model, mp, CHI, trunc, UpdateRule("exchange"),
             out.final_configs,
             generator=torch.Generator(device=device).manual_seed(9)))
@@ -1113,8 +1143,8 @@ def phase_j1j2(res, device):
     for name, m in (("triangle_j1j2", spin.triangle_j1j2_heisenberg(1, 0.5)),
                     ("j1_tnn", tnn)):
         mt = ModelTensors.from_model(m, state.dtype, device)
-        (energy, err), launches = j1j2_step(
-            device, f"energy_only_{name}", lambda: mc_energy_only(
+        (energy, err), launches = counted_step(
+            device, "j1j2", f"energy_only_{name}", lambda: mc_energy_only(
                 state, cfgs, mt, CHI, trunc, UpdateRule("exchange"), 1,
                 lambda: draw_uniforms(gen, NCHAINS, LY, LX, state.dtype,
                                       device)))
@@ -1129,6 +1159,262 @@ def phase_j1j2(res, device):
         fail("j1j2: kernel pair_transfer was not launched")
     if total["col_transfer"] == 0 or total["centered_o"] == 0:
         fail(f"j1j2: a kernel was not launched: {total}")
+    return total, {"vmc_energy_per_site": e_site,
+                   "measure_energy_per_site": e / n}
+
+
+def product_energy(model, occ):
+    """Energy of the product state |occ>: the diagonal element of every
+    coupling on every bond (exact, the state has no other amplitude)."""
+    ly, lx = occ.shape
+    e = 0.0
+    for name, (y1, x1), (y2, x2) in (
+            ("h_h", (0, 0), (0, 1)), ("h_v", (0, 0), (1, 0)),
+            ("h_d", (0, 0), (1, 1)), ("h_ad", (1, 0), (0, 1)),
+            ("h_s5a", (1, 0), (0, 2)), ("h_s5b", (2, 0), (0, 1)),
+            ("h_tnn_h", (0, 0), (0, 2)), ("h_tnn_v", (0, 0), (2, 0))):
+        h = getattr(model, name)
+        if h is None:
+            continue
+        for y in range(ly - max(y1, y2)):
+            for x in range(lx - max(x1, x2)):
+                c1, c2 = occ[y + y1, x + x1], occ[y + y2, x + x2]
+                e += float(h[c1, c2, c1, c2])
+    if model.h_site is not None:
+        e += sum(float(model.h_site[c, c]) for c in occ.reshape(-1))
+    return e
+
+
+def cluster_su(step, device, name, fn, model, steps):
+    """One cluster simple update from the Neel product state, run through
+    step(name, fn) (phase 8's counted step), its steps timed through the
+    step observer (synchronized). Returns the result."""
+    import numpy as np
+    import torch
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.peps import SimpleUpdateParams, product_peps
+
+    n = LY * LX
+    rec = {"s": [], "e0": [], "trunc_err": []}
+    clock = [0.0]
+
+    def observe(step, e0, en, trunc_err):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec["s"].append(now - clock[0])
+        rec["e0"].append(e0 / n)
+        rec["trunc_err"].append(trunc_err)
+        clock[0] = now
+
+    def run():
+        peps0 = product_peps(LY, LX, D, np.indices((LY, LX)).sum(0) % 2,
+                             PHYS, dtype=torch.float32, device=device)
+        torch.cuda.synchronize()
+        clock[0] = time.perf_counter()
+        return fn(peps0, model, SimpleUpdateParams(steps, 0.1,
+                                                   TruncParams(D, 1, 1e-8)),
+                  step_observer=observe)
+
+    su = step(name, run)
+    log("bosonic_rest", step=f"{name}_steps", steps=steps,
+        seconds_per_step=rec["s"], e0_per_site=rec["e0"],
+        trunc_err=rec["trunc_err"],
+        mean_seconds_per_step_after_first=sum(rec["s"][1:])
+        / max(len(rec["s"]) - 1, 1))
+    if not bool(torch.isfinite(su.peps.gammas).all()):
+        fail(f"{name}: non-finite state")
+    return su
+
+
+def phase_bosonic_rest(res, device, j1j2, nn_su_s_per_step, e_svd):
+    """Phase 8: the rest of the bosonic OBC surface at the main path's
+    width; e_svd: phase 4's svd local energies of the same 16
+    configurations. Returns the launches summed over its steps."""
+    import numpy as np
+    import torch
+    from peps_tpu_torch.algorithm.energy import (
+        ModelTensors, local_energy_and_holes, local_energy_and_holes_dressed,
+        psi_consistency_check)
+    from peps_tpu_torch.algorithm.mc_evaluator import MCParams, mc_energy_only
+    from peps_tpu_torch.algorithm.vmc_optimize import VMCParams, vmc_optimize
+    from peps_tpu_torch.contraction.bmps import (all_top_envs,
+                                                 entanglement_entropy)
+    from peps_tpu_torch.lattice import transpose_tps
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.montecarlo.jastrow import JastrowDress
+    from peps_tpu_torch.montecarlo.sweep import (UpdateRule, draw_uniforms,
+                                                 mc_sweep_3site)
+    from peps_tpu_torch.optimizer.cg import CGParams
+    from peps_tpu_torch.optimizer.optimizer import OptimizerParams, SRParams
+    from peps_tpu_torch.peps import to_tps
+    from peps_tpu_torch.peps_cluster import (simple_update_nnn,
+                                             simple_update_triangle)
+    from peps_tpu_torch.tps import project
+
+    n = LY * LX
+    trunc = TruncParams(CHI, 1, 1e-6, scheme="sketch")
+    state0, cfgs = res.state, res.final_configs
+    total = {k: 0 for k in kernel_counts()}
+
+    def step(name, fn):
+        out, launches = counted_step(device, "bosonic_rest", name, fn)
+        for k, v in launches.items():
+            total[k] += v
+        return out
+
+    def uniforms(seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return lambda: draw_uniforms(gen, NCHAINS, LY, LX, torch.float32,
+                                     device)
+
+    def unit(su):
+        tps = to_tps(su.peps)
+        return tps / tps.abs().max()
+
+    # 1. the J1-J2 state: NNN cluster simple update, then 2 SR iterations
+    model = spin.j1j2_xxz(1, 1, 0.5, 0.5)
+    su = cluster_su(step, device, "su_nnn", simple_update_nnn, model,
+                    NNN_SU_STEPS)
+    state = unit(su)
+    recs = []
+    params = VMCParams(
+        CHI, trunc, MCParams(num_samples=1, num_warmup_sweeps=WARMUP_SWEEPS,
+                             nchains=NCHAINS),
+        OptimizerParams(2, SRParams(CGParams(30, 1e-5), diag_shift=1e-3),
+                        lr=0.05))
+    out = step("vmc_sr_j1j2_from_nnn", lambda: vmc_optimize(
+        state, model, params, torch.Generator(device=device).manual_seed(81),
+        configs=cfgs, callback=lambda rec, st: recs.append(rec)))
+    e_site = [r.energy / n for r in recs]
+    log("bosonic_rest", step="j1j2_from_nnn_state", energy_per_site=e_site,
+        energy_stderr_per_site=[r.energy_error / n for r in recs],
+        phase7_from_heisenberg_state=j1j2,
+        su_nnn_energy_per_site=su.estimated_e0 / n,
+        su_seconds_per_step_nn=nn_su_s_per_step,
+        eval_s=[r.eval_seconds for r in recs],
+        update_s=[r.update_seconds for r in recs],
+        accept_rate=[r.accept_rate for r in recs])
+    if len(recs) != 2 or not all(-0.60 < e < -0.35 for e in e_site) or \
+            not bool(torch.isfinite(out.state).all()):
+        fail(f"j1j2 from the NNN state: energy per site {e_site} outside "
+             "(-0.60, -0.35)")
+
+    # 2. the triangular state: triangle cluster update, energy-only
+    tri = spin.triangle_j1j2_heisenberg(1, 0.5)
+    su_tri = cluster_su(step, device, "su_triangle", simple_update_triangle,
+                        tri, TRI_SU_STEPS)
+    mt_tri = ModelTensors.from_model(tri, torch.float32, device)
+    e_tri, err_tri = step("energy_only_triangle", lambda: mc_energy_only(
+        unit(su_tri), cfgs, mt_tri, CHI, trunc, UpdateRule("exchange"), 2,
+        uniforms(82), sweeps_between=2))
+    e_prod = product_energy(tri, np.indices((LY, LX)).sum(0) % 2)
+    log("bosonic_rest", step="triangle_result",
+        energy_per_site=float(e_tri) / n,
+        energy_stderr_per_site=float(err_tri) / n,
+        product_state_energy_per_site=e_prod / n,
+        lambda_sum_history=su_tri.energy_history[-3:])
+    if not (math.isfinite(float(e_tri)) and float(e_tri) < e_prod):
+        fail(f"triangle: energy {float(e_tri)} not below the product "
+             f"state's {e_prod}")
+
+    # 3. ratio tables against the evaluator; the dress
+    mt_j = ModelTensors.from_model(model, torch.float32, device)
+    e_ev = step("e_loc_j1j2_evaluator", lambda: local_energy_and_holes(
+        state, cfgs, mt_j, CHI, trunc, with_holes=False).e_loc)
+    e_tab = step("e_loc_j1j2_ratio_tables",
+                 lambda: local_energy_and_holes_dressed(
+                     state, cfgs, mt_j, None, CHI, trunc,
+                     with_holes=False).e_loc)
+    rel_tab = ((e_tab - e_ev).abs() / e_ev.abs().clamp(min=1e-12)).max()
+    gen = torch.Generator(device=device).manual_seed(84)
+    v = torch.randn(n, n, generator=gen, device=device) * 0.01
+    v = (v + v.T).fill_diagonal_(0.0)
+    nvals = torch.tensor([0.5, -0.5], device=device)
+    e_zero = step("e_loc_dressed_v0", lambda: local_energy_and_holes_dressed(
+        state, cfgs, mt_j, JastrowDress(torch.zeros_like(v), nvals), CHI,
+        trunc, with_holes=False).e_loc)
+    dressed = step("e_loc_dressed", lambda: local_energy_and_holes_dressed(
+        state, cfgs, mt_j, JastrowDress(v, nvals), CHI, trunc))
+    log("bosonic_rest", step="ratio_tables", max_rel_diff_vs_evaluator=
+        rel_tab.item(), dressed_v0_equal=bool(torch.equal(e_zero, e_tab)),
+        dressed_energy_per_site=dressed.e_loc.mean().item() / n,
+        undressed_energy_per_site=e_tab.mean().item() / n)
+    if not rel_tab.item() < 1e-4:
+        fail(f"ratio-table energy against the evaluator: {rel_tab.item()}")
+    if not torch.equal(e_zero, e_tab):
+        fail("dressed energy with v = 0 differs from the undressed one")
+    if not (bool(torch.isfinite(dressed.e_loc).all())
+            and bool(torch.isfinite(dressed.o_tensor).all())):
+        fail("dressed energy or holes not finite")
+
+    # 4. the 3-site permutation sweep over the 32 chains
+    gen = torch.Generator(device=device).manual_seed(85)
+    cur = cfgs
+    for i in range(SWEEPS_3SITE):
+        t0 = time.perf_counter()
+        new, st = step(f"sweep_3site_{i}", lambda: mc_sweep_3site(
+            state0, transpose_tps(state0), cur, CHI, trunc, generator=gen))
+        sz_kept = bool(torch.equal((new == 0).sum((1, 2)),
+                                   (cur == 0).sum((1, 2))))
+        log("bosonic_rest", step=f"sweep_3site_{i}_result",
+            seconds=time.perf_counter() - t0,
+            accept_rate=int(st.accepted) / max(int(st.trials), 1),
+            trials=int(st.trials), sz_conserved=sz_kept)
+        if not sz_kept:
+            fail("the 3-site sweep changed a chain's Sz")
+        cur = new
+
+    # 5. monitors
+    rel_psi, _ = step("psi_consistency", lambda: psi_consistency_check(
+        state0, cfgs, CHI, trunc))
+    tops, _ = all_top_envs(project(state0, cfgs[:1]), CHI, trunc)
+    s_mid = step("entanglement_entropy", lambda: entanglement_entropy(
+        tops[0, LY // 2], LX // 2))
+    log("bosonic_rest", step="monitors",
+        psi_consistency_max=rel_psi.max().item(),
+        psi_consistency_median=rel_psi.median().item(),
+        entanglement_entropy_mid_cut=float(s_mid))
+    if not (math.isfinite(rel_psi.max().item())
+            and math.isfinite(float(s_mid)) and float(s_mid) >= 0):
+        fail(f"monitors: psi {rel_psi.max().item()}, S {float(s_mid)}")
+    # 6. the compress schemes against svd on 16 configurations, then one
+    # energy-only evaluation each
+    cfg16 = cfgs[:GATE_CONFIGS]
+    mt = ModelTensors.from_model(spin.heisenberg(), state0.dtype, device)
+
+    def e_scheme(scheme, configs):
+        return local_energy_and_holes(
+            state0, configs, mt, CHI, TruncParams(CHI, 1, 1e-6,
+                                                  scheme=scheme),
+            with_holes=False).e_loc
+
+    for scheme in ("var2", "var1", "fast"):
+        e = step(f"e_loc_{scheme}", lambda: e_scheme(scheme, cfg16))
+        rel = ((e - e_svd).abs() / e_svd.abs().clamp(min=1e-12)).max().item()
+        log("bosonic_rest", step=f"scheme_{scheme}", configs=GATE_CONFIGS,
+            max_rel_diff_vs_svd=rel)
+        if not rel < 1e-2:
+            fail(f"scheme {scheme} against svd: {rel}")
+    nce = SCHEME_EVAL_CHAINS
+    for scheme in ("sketch", "fast", "var1", "var2"):
+        tr = TruncParams(CHI, 1, 1e-6, scheme=scheme)
+        gen = torch.Generator(device=device).manual_seed(83)
+        t0 = time.perf_counter()
+        energy, err = step(f"energy_only_{scheme}", lambda: mc_energy_only(
+            state0, cfgs[:nce], mt, CHI, tr, UpdateRule("exchange"), 1,
+            lambda: draw_uniforms(gen, nce, LY, LX, torch.float32, device)))
+        log("bosonic_rest", step=f"energy_only_{scheme}_result", chains=nce,
+            seconds=time.perf_counter() - t0,
+            energy_per_site=float(energy) / n,
+            energy_stderr_per_site=float(err) / n)
+        if not math.isfinite(float(energy)):
+            fail(f"energy-only with {scheme}: {float(energy)}")
+
+    log("bosonic_rest", step="total", launches=total)
+    missing = [k for k, v in total.items() if v == 0]
+    if missing:
+        fail(f"bosonic_rest: kernels not launched: {missing}")
     return total
 
 
@@ -1160,12 +1446,20 @@ def main():
         ptxas=[ln for ln in built.log.splitlines()
                if "ptxas info" in ln or "spill" in ln])
 
-    kern = phase_kernels(device)
-    res, launches = phase_main_path(device)
-    phase_gate(res)
-    launches_measure = phase_measure(res, device)
-    launches_opt = phase_optimizers(res, device)
-    launches_j1j2 = phase_j1j2(res, device)
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log("phase_end", name=name, phase_wall_s=time.perf_counter() - t)
+        return out
+
+    kern = timed("kernels", phase_kernels, device)
+    res, launches, su_s = timed("main_path", phase_main_path, device)
+    e_svd = timed("gate", phase_gate, res)
+    launches_measure = timed("measure", phase_measure, res, device)
+    launches_opt = timed("optimizers", phase_optimizers, res, device)
+    launches_j1j2, j1j2 = timed("j1j2", phase_j1j2, res, device)
+    launches_rest = timed("bosonic_rest", phase_bosonic_rest, res, device,
+                          j1j2, su_s, e_svd)
 
     record = {"kernels": [
         {"name": "col_transfer", "route": "cuda",
@@ -1175,6 +1469,7 @@ def main():
          "launches_measure": launches_measure,
          "launches_optimizers": launches_opt["col_transfer"],
          "launches_j1j2": launches_j1j2["col_transfer"],
+         "launches_bosonic_rest": launches_rest["col_transfer"],
          **kern["col_transfer"]},
         {"name": "centered_o", "route": "cuda",
          "source": "peps_tpu_torch/csrc/centered_o.cu",
@@ -1182,11 +1477,13 @@ def main():
          "launches": launches["centered_o"],
          "launches_optimizers": launches_opt["centered_o"],
          "launches_j1j2": launches_j1j2["centered_o"],
+         "launches_bosonic_rest": launches_rest["centered_o"],
          **kern["centered_o"]},
         {"name": "pair_transfer", "route": "cuda",
          "source": "peps_tpu_torch/csrc/pair_transfer.cu",
          "replaces": "peps_tpu/algorithm/energy.py:132",
          "launches": launches_j1j2["pair_transfer"],
+         "launches_bosonic_rest": launches_rest["pair_transfer"],
          **kern["pair_transfer"]},
     ]}
     print(json.dumps(record), flush=True)

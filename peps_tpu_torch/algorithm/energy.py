@@ -11,6 +11,12 @@ anti-diagonal and sqrt5 terms; in-row third neighbours from
 ``_tnn_row_pass``; the second sqrt5 family and in-column third neighbours
 in the transposed frame.
 
+The same machinery gives the normalized ratio tables of
+:func:`compute_ratio_tables` (the reference's ``RatioTables``), which the
+Jastrow-dressed evaluator multiplies by the dress's ratio factors, and the
+psi-consistency monitor. The two-row tables are built in one place,
+:func:`_pair_tables`, for the pair pass and the ratio tables alike.
+
 Every two-row transfer goes through kernel K3
 (:mod:`peps_tpu_torch.kernels.pair_transfer`) on the two rows as they are;
 the reference's column-fused site (``_fuse_pair_columns``), a TPU layout
@@ -30,6 +36,8 @@ from peps_tpu_torch.kernels.pair_transfer import (pair_transfer,
                                                   pair_transfer_right)
 from peps_tpu_torch.lattice import transpose_tps
 from peps_tpu_torch.linalg import TruncParams
+from peps_tpu_torch.montecarlo.jastrow import (one_site_log_ratios,
+                                               two_site_log_ratios)
 from peps_tpu_torch.tps import project
 
 
@@ -80,24 +88,37 @@ class _RowPass(NamedTuple):
     ratio1: torch.Tensor     # [nc, Ly, Lx, d]
     holes: torch.Tensor      # [nc, Ly, Lx, u, l, d, r]
     psi_loc: torch.Tensor    # [nc, Ly, Lx]
+    ratio_h: torch.Tensor | None = None   # [nc, Ly, Lx-1, d, d]
 
 
 def _safe(x):
     return torch.where(x == 0, torch.ones_like(x), x)
 
 
-def _table_energy(table, cp, cq, h):
-    """sum over bonds of h[cp, cq, :, :] * table / table[cp, cq]; table
-    [nc, ..., d, d] with the bonds' configurations cp, cq [nc, ...] -> [nc]."""
+def _ratio_table(table, cp, cq):
+    """table / table[cp, cq]: amplitude ratios of every replacement pair;
+    table [nc, ..., d, d] with the pairs' configurations cp, cq [nc, ...]."""
     psi_b = table.take_along_dim(cp[..., None, None], -2) \
         .take_along_dim(cq[..., None, None], -1)[..., 0, 0]
-    ratios = table / _safe(psi_b)[..., None, None]
+    return table / _safe(psi_b)[..., None, None]
+
+
+def _ratio_energy(ratios, cp, cq, h):
+    """sum over pairs of h[cp, cq, :, :] * ratios -> [nc]."""
     return (h[cp, cq] * ratios).flatten(1).sum(1)
 
 
-def _row_pass(tps, tn, config, h_bond, stacks) -> _RowPass:
+def _table_energy(table, cp, cq, h):
+    """sum over bonds of h[cp, cq, :, :] * table / table[cp, cq]; table
+    [nc, ..., d, d] with the bonds' configurations cp, cq [nc, ...] -> [nc]."""
+    return _ratio_energy(_ratio_table(table, cp, cq), cp, cq, h)
+
+
+def _row_pass(tps, tn, config, h_bond, stacks, want_h: bool = False
+              ) -> _RowPass:
     """Single-row machinery over all chains and rows at once: horizontal
-    bond energies, one-site ratio tables, holes and local psi."""
+    bond energies, one-site ratio tables, holes and local psi; the
+    horizontal ratio table too where h_bond is set or want_h."""
     ly, lx = tps.shape[0], tps.shape[1]
     tops, bots = stacks.tops[:, :ly], stacks.bots[:, 1:]
     envs = bmps.row_envs(tops, bots, tn)
@@ -106,11 +127,15 @@ def _row_pass(tps, tn, config, h_bond, stacks) -> _RowPass:
     ones = torch.einsum("nyxuldr,yxpuldr->nyxp", holes, tps)
     ratio1 = ones / _safe(psi_loc)[..., None]
     bond_e = torch.zeros_like(psi_loc[:, 0, 0])
-    if h_bond is not None:
+    ratio_h = None
+    if h_bond is not None or want_h:
         nn = bmps.replace_nn_site_traces(envs, tops, bots, tps[:, :lx - 1],
                                          tps[:, 1:])
-        bond_e = _table_energy(nn, config[..., :-1], config[..., 1:], h_bond)
-    return _RowPass(bond_e, ratio1, holes, psi_loc)
+        ratio_h = _ratio_table(nn, config[..., :-1], config[..., 1:])
+    if h_bond is not None:
+        bond_e = _ratio_energy(ratio_h, config[..., :-1], config[..., 1:],
+                               h_bond)
+    return _RowPass(bond_e, ratio1, holes, psi_loc, ratio_h)
 
 
 def _bond_pass(tps, tn, config, h_bond, stacks):
@@ -191,20 +216,30 @@ def _vertical_pair_table(lefts, rights, top, bot, cands1, cands2):
     return torch.einsum("...xpnefd,...xqdnef->...xpq", t3, cands2)
 
 
-def _pair_pass(tps, tn, config, h_v, h_d, h_ad, stacks, h_s5=None):
-    """Vertical, diagonal, anti-diagonal and sqrt5 ((y+1,x)-(y,x+2)) bond
-    energies [nc] from the two-row sandwiches of every row pair (y, y+1),
-    batched over chains and row pairs. Every lblk/rblk and middle-column
-    chain is one K3 launch with a candidate batch axis; the closures are
-    products of the two blocks."""
+class _PairTables(NamedTuple):
+    """Ratio tables of the two-row sandwiches of every row pair (y, y+1),
+    [nc, Ly-1, ..., d, d]; None where not asked for. v: (y,x)-(y+1,x),
+    indexed [row1, row2]; d: (y,x)-(y+1,x+1), [row1, row2]; ad:
+    (y+1,x)-(y,x+1), [row2, row1]; s5: (y+1,x)-(y,x+2), [row2, row1]."""
+    v: torch.Tensor | None
+    d: torch.Tensor | None
+    ad: torch.Tensor | None
+    s5: torch.Tensor | None
+
+
+def _pair_tables(tps, tn, config, stacks, want_v: bool, want_d: bool,
+                 want_ad: bool, want_s5: bool = False) -> _PairTables:
+    """The normalized vertical, diagonal, anti-diagonal and sqrt5 ratio
+    tables from the two-row sandwiches, batched over chains and row pairs:
+    the one place that builds the K3 blocks. Every lblk/rblk and
+    middle-column chain is one K3 launch with a candidate batch axis; a
+    table is the product of its two blocks."""
     ly, lx = tps.shape[0], tps.shape[1]
     top, bot = stacks.tops[:, :ly - 1], stacks.bots[:, 2:]
     row1, row2 = tn[:, :ly - 1], tn[:, 1:]
     cands1, cands2 = tps[:ly - 1], tps[1:]       # [Ly-1, Lx, d, D, D, D, D]
     c1, c2 = config[:, :ly - 1], config[:, 1:]
     lefts, rights = _pair_row_envs(top, bot, row1, row2)
-    e = torch.zeros(config.shape[0], dtype=lefts.real.dtype,
-                    device=lefts.device)
 
     def cols(t, a, b, nd):
         """Columns a..b-1 of t (trailing nd dims each), with a candidate
@@ -218,28 +253,27 @@ def _pair_pass(tps, tn, config, h_v, h_d, h_ad, stacks, h_s5=None):
     def closure(l, r):
         return torch.einsum("...pABCE,...qABCE->...pq", l, r)
 
-    if h_v is not None:
-        table = _vertical_pair_table(lefts, rights, top, bot, cands1, cands2)
-        e = e + _table_energy(table, c1, c2, h_v)
-
+    out_v = out_d = out_ad = out_s5 = None
+    if want_v:
+        out_v = _ratio_table(_vertical_pair_table(lefts, rights, top, bot,
+                                                  cands1, cands2), c1, c2)
     nb = lx - 1
-    if nb > 0 and (h_d is not None or h_ad is not None):
+    if nb > 0 and (want_d or want_ad):
         env_l, env_r = cols(lefts, 0, nb, 4), cols(rights, 2, lx + 1, 4)
         tl, r1l, r2l, bl = side(0, nb)
         tr, r1r, r2r, br = side(1, lx)
-        if h_d is not None:     # row1 @ x (p) and row2 @ x+1 (q) replaced
+        if want_d:      # row1 @ x (p) and row2 @ x+1 (q) replaced
             lblk = pair_transfer(env_l, tl, cands1[:, :nb], r2l, bl)
             rblk = pair_transfer_right(env_r, tr, r1r, cands2[:, 1:], br)
-            e = e + _table_energy(closure(lblk, rblk), c1[..., :nb],
-                                  c2[..., 1:], h_d)
-        if h_ad is not None:    # row2 @ x (q) and row1 @ x+1 (p) replaced
+            out_d = _ratio_table(closure(lblk, rblk), c1[..., :nb],
+                                 c2[..., 1:])
+        if want_ad:     # row2 @ x (q) and row1 @ x+1 (p) replaced
             lblk = pair_transfer(env_l, tl, r1l, cands2[:, :nb], bl)
             rblk = pair_transfer_right(env_r, tr, cands1[:, 1:], r2r, br)
-            e = e + _table_energy(closure(lblk, rblk), c2[..., :nb],
-                                  c1[..., 1:], h_ad)
-
+            out_ad = _ratio_table(closure(lblk, rblk), c2[..., :nb],
+                                  c1[..., 1:])
     nb2 = lx - 2
-    if nb2 > 0 and h_s5 is not None:
+    if nb2 > 0 and want_s5:
         # lower-left (row2 @ x, q) with upper-right (row1 @ x+2, p); the
         # middle column x+1 unchanged
         tl, r1l, _, bl = side(0, nb2)
@@ -249,8 +283,26 @@ def _pair_pass(tps, tn, config, h_v, h_d, h_ad, stacks, h_s5=None):
         tr, _, r2r, br = side(2, lx)
         rblk = pair_transfer_right(cols(rights, 3, lx + 1, 4), tr,
                                    cands1[:, 2:], r2r, br)
-        e = e + _table_energy(closure(lblk, rblk), c2[..., :nb2],
-                              c1[..., 2:], h_s5)
+        out_s5 = _ratio_table(closure(lblk, rblk), c2[..., :nb2],
+                              c1[..., 2:])
+    return _PairTables(out_v, out_d, out_ad, out_s5)
+
+
+def _pair_pass(tps, tn, config, h_v, h_d, h_ad, stacks, h_s5=None):
+    """Vertical, diagonal, anti-diagonal and sqrt5 ((y+1,x)-(y,x+2)) bond
+    energies [nc] from the ratio tables of :func:`_pair_tables`."""
+    ly = tps.shape[0]
+    c1, c2 = config[:, :ly - 1], config[:, 1:]
+    tabs = _pair_tables(tps, tn, config, stacks, h_v is not None,
+                        h_d is not None, h_ad is not None, h_s5 is not None)
+    e = torch.zeros(config.shape[0], dtype=tn.real.dtype, device=tn.device)
+    for ratios, cp, cq, h in (
+            (tabs.v, c1, c2, h_v),
+            (tabs.d, c1[..., :-1], c2[..., 1:], h_d),
+            (tabs.ad, c2[..., :-1], c1[..., 1:], h_ad),
+            (tabs.s5, c2[..., :-2], c1[..., 2:], h_s5)):
+        if ratios is not None:
+            e = e + _ratio_energy(ratios, cp, cq, h)
     return e
 
 
@@ -283,7 +335,6 @@ def _local_energy(tps, config, model: ModelTensors, chi: int,
     configurations in the normal / transposed frame (the latter is read
     only where :func:`needs_transposed_frame` says so), so that a caller
     shares them with other passes over the same configurations."""
-    ly = tps.shape[0]
     config = config.long()
     tn = project(tps, config)
     if stacks is None:
@@ -314,10 +365,7 @@ def _local_energy(tps, config, model: ModelTensors, chi: int,
                            h_s5=model.h_s5b.permute(1, 0, 3, 2))
     if model.h_tnn_v is not None:
         e = e + _tnn_row_pass(tps_t, tn_t, cfg_t, model.h_tnn_v, stacks_t)
-    mant = bmps.close_boundary(stacks.tops[:, ly])
-    rdt = tn.real.dtype if tn.is_complex() else tn.dtype
-    log_abs = torch.log(torch.clamp(mant.abs(), min=torch.finfo(rdt).tiny)) \
-        + stacks.log_tops[:, ly]
+    log_abs, mant = _log_abs_psi(stacks, tn)
     return e, rp, log_abs, mant
 
 
@@ -329,3 +377,137 @@ def local_energy_and_holes(tps, config, model: ModelTensors, chi: int,
     o = o_tensor_of(rp.holes, rp.psi_loc, config.long(), tps.shape[2]) \
         if with_holes else None
     return EnergyHoles(e, o, log_abs, mant)
+
+
+# ---------------------------------------------------------------------------
+# ratio tables, the Jastrow-dressed evaluator and the psi-consistency monitor
+# ---------------------------------------------------------------------------
+
+class RatioTables(NamedTuple):
+    """Amplitude ratios psi(s')/psi(s) from shared environments, per chain:
+    ratio1 [nc, Ly, Lx, d] (one site replaced); ratio_h [nc, Ly, Lx-1, d, d]
+    (horizontal pairs); ratio_v [nc, Ly-1, Lx, d, d], ratio_d
+    [nc, Ly-1, Lx-1, d, d] ((y,x)-(y+1,x+1)) and ratio_ad [nc, Ly-1, Lx-1,
+    d, d] ((y+1,x)-(y,x+1), indexed [lower-left, upper-right]), each None
+    unless asked for; o_tensor O = d ln psi / dA or None; psi_loc
+    [nc, Ly, Lx]; log_abs_psi and psi_mant [nc]."""
+    ratio1: torch.Tensor
+    ratio_h: torch.Tensor
+    ratio_v: torch.Tensor | None
+    ratio_d: torch.Tensor | None
+    ratio_ad: torch.Tensor | None
+    o_tensor: torch.Tensor | None
+    psi_loc: torch.Tensor
+    log_abs_psi: torch.Tensor
+    psi_mant: torch.Tensor
+
+
+def _log_abs_psi(stacks, tn):
+    ly = tn.shape[-6]
+    mant = bmps.close_boundary(stacks.tops[:, ly])
+    return torch.log(torch.clamp(mant.abs(), min=bmps._tiny(tn))) \
+        + stacks.log_tops[:, ly], mant
+
+
+def compute_ratio_tables(tps, config, chi: int, trunc: TruncParams,
+                         need=("h",), with_holes: bool = True) -> RatioTables:
+    """Every ratio table a model needs, for config [nc, Ly, Lx]. need: a
+    subset of {"h", "v", "d", "ad"}; the one-site and horizontal tables are
+    always formed (single-row sandwiches, K1), the others from the two-row
+    sandwiches (:func:`_pair_tables`, K3)."""
+    config = config.long()
+    tn = project(tps, config)
+    stacks = bmps.all_env_stacks(tn, chi, trunc)
+    rp = _row_pass(tps, tn, config, None, stacks, want_h=True)
+    o = o_tensor_of(rp.holes, rp.psi_loc, config, tps.shape[2]) \
+        if with_holes else None
+    tabs = _PairTables(None, None, None, None)
+    if any(k in need for k in ("v", "d", "ad")):
+        tabs = _pair_tables(tps, tn, config, stacks, "v" in need,
+                            "d" in need, "ad" in need)
+    log_abs, mant = _log_abs_psi(stacks, tn)
+    return RatioTables(rp.ratio1, rp.ratio_h, tabs.v, tabs.d, tabs.ad, o,
+                       rp.psi_loc, log_abs, mant)
+
+
+def apply_dress_to_tables(tables: RatioTables, dress,
+                          config) -> RatioTables:
+    """Multiply the Jastrow ratio factors of ``dress`` into every
+    replacement table of config [nc, Ly, Lx]; log|psi| gains log J."""
+    ly, lx = config.shape[-2:]
+    flat = torch.arange(ly * lx, device=config.device).reshape(ly, lx)
+
+    def dressed(table, log_ratios):
+        return None if table is None else \
+            table * torch.exp(log_ratios).to(table.dtype).reshape(table.shape)
+
+    def pair(table, idx1, idx2):
+        if table is None:
+            return None
+        return dressed(table, two_site_log_ratios(dress, config,
+                                                  idx1.reshape(-1),
+                                                  idx2.reshape(-1)))
+
+    return RatioTables(
+        dressed(tables.ratio1, one_site_log_ratios(dress, config, ly, lx)),
+        pair(tables.ratio_h, flat[:, :lx - 1], flat[:, 1:]),
+        pair(tables.ratio_v, flat[:ly - 1], flat[1:]),
+        pair(tables.ratio_d, flat[:ly - 1, :lx - 1], flat[1:, 1:]),
+        pair(tables.ratio_ad, flat[1:, :lx - 1], flat[:ly - 1, 1:]),
+        tables.o_tensor, tables.psi_loc,
+        tables.log_abs_psi + dress.log_factor(config).to(
+            tables.log_abs_psi.dtype),
+        tables.psi_mant)
+
+
+def local_energy_and_holes_dressed(tps, config, model, dress, chi: int,
+                                   trunc: TruncParams,
+                                   with_holes: bool = True) -> EnergyHoles:
+    """Jastrow-dressed local energy of psi_J = exp(J) psi for config
+    [nc, Ly, Lx]: h_h, h_v, h_d, h_ad and h_site through the dressed ratio
+    tables. O with respect to the TPS is unchanged by the dress; log|psi|
+    gains log J; dress None gives the same sum over the plain tables. A
+    model with longer-range terms is refused: the reference takes the same
+    five terms and leaves the others out of the sum."""
+    model = bosonic_model_tensors(model, tps.dtype, tps.device,
+                                  "local_energy_and_holes_dressed")
+    extra = [f for f in ("h_s5a", "h_s5b", "h_tnn_h", "h_tnn_v")
+             if getattr(model, f) is not None]
+    if extra:
+        raise ValueError("local_energy_and_holes_dressed takes h_h, h_v, "
+                         f"h_d, h_ad and h_site; the model also has {extra}")
+    need = ("h",) + tuple(k for k, h in (("v", model.h_v), ("d", model.h_d),
+                                         ("ad", model.h_ad)) if h is not None)
+    config = config.long()
+    tabs = compute_ratio_tables(tps, config, chi, trunc, need, with_holes)
+    if dress is not None:
+        tabs = apply_dress_to_tables(tabs, dress, config)
+    e = torch.zeros(config.shape[0], dtype=tabs.ratio1.real.dtype,
+                    device=tps.device)
+    for h, ratios, cp, cq in (
+            (model.h_h, tabs.ratio_h, config[..., :-1], config[..., 1:]),
+            (model.h_v, tabs.ratio_v, config[:, :-1], config[:, 1:]),
+            (model.h_d, tabs.ratio_d, config[:, :-1, :-1], config[:, 1:, 1:]),
+            (model.h_ad, tabs.ratio_ad, config[:, 1:, :-1],
+             config[:, :-1, 1:])):
+        if h is not None:
+            e = e + _ratio_energy(ratios, cp, cq, h)
+    if model.h_site is not None:
+        e = e + (model.h_site[config] * tabs.ratio1).sum(dim=(1, 2, 3))
+    return EnergyHoles(e, tabs.o_tensor, tabs.log_abs_psi, tabs.psi_mant)
+
+
+def psi_consistency_check(tps, config, chi: int, trunc: TruncParams):
+    """The amplitude closed from every row sandwich must agree: log|psi| of
+    each row y (its row envs closed at column 0, with the top and bottom
+    stacks' logs) for config [nc, Ly, Lx]. Returns (max |log psi_y -
+    log psi_0| [nc], the logs [nc, Ly])."""
+    ly = tps.shape[0]
+    tn = project(tps, config.long())
+    stacks = bmps.all_env_stacks(tn, chi, trunc)
+    envs = bmps.row_envs(stacks.tops[:, :ly], stacks.bots[:, 1:], tn)
+    mant = bmps.row_trace(envs, 0)
+    logs = torch.log(torch.clamp(mant.abs(), min=1e-300)) \
+        + envs.log_lefts[..., 0] + envs.log_rights[..., 0] \
+        + stacks.log_tops[:, :ly] + stacks.log_bots[:, 1:]
+    return (logs - logs[:, :1]).abs().amax(-1), logs

@@ -5,7 +5,9 @@ far; later slices add the rest.
 """
 from __future__ import annotations
 
-from peps_tpu_torch.algorithm.energy import ModelTensors
+from peps_tpu_torch.algorithm.energy import (ModelTensors,
+                                             local_energy_and_holes_dressed,
+                                             psi_consistency_check)
 from peps_tpu_torch.algorithm.exact_measure import exact_sum_measure
 from peps_tpu_torch.algorithm.exact_sum import (all_configs,
                                                 exact_sum_energy_gradient,
@@ -18,11 +20,13 @@ from peps_tpu_torch.algorithm.registry import (Observable,
                                                structure_factor_spsm_row)
 from peps_tpu_torch.algorithm.vmc_optimize import (VMCParams, VMCResult,
                                                    vmc_optimize)
+from peps_tpu_torch.contraction.bmps import entanglement_entropy
 from peps_tpu_torch.lattice import BoundaryCondition
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.models import spin
 from peps_tpu_torch.montecarlo.engine import (init_configs_occupancy,
                                               init_configs_uniform)
+from peps_tpu_torch.montecarlo.jastrow import JastrowDress
 from peps_tpu_torch.montecarlo.sweep import UpdateRule
 from peps_tpu_torch.optimizer.optimizer import (AdaGradParams, AdamParams,
                                                 LBFGSParams, MinSRParams,
@@ -30,7 +34,10 @@ from peps_tpu_torch.optimizer.optimizer import (AdaGradParams, AdamParams,
                                                 SRParams)
 from peps_tpu_torch.peps import (PEPS, SimpleUpdateParams, product_peps,
                                  simple_update, to_tps)
-from peps_tpu_torch.tps import load_tps, save_tps
+from peps_tpu_torch.peps_cluster import (simple_update_nnn,
+                                         simple_update_triangle)
+from peps_tpu_torch.tps import (expand_bond_dim, load_tps, project,
+                                random_tps, save_tps, wavefunction_sum)
 
 __all__ = [
     "BoundaryCondition", "TruncParams", "UpdateRule",
@@ -42,7 +49,11 @@ __all__ = [
     "SGDParams", "AdaGradParams", "AdamParams", "SRParams", "MinSRParams",
     "LBFGSParams", "OptimizerParams",
     "PEPS", "SimpleUpdateParams", "product_peps", "simple_update", "to_tps",
-    "save_tps", "load_tps",
-    "spin", "ModelTensors", "exact_sum_measure",
+    "random_tps", "project", "save_tps", "load_tps",
+    "simple_update_nnn", "simple_update_triangle",
+    "spin", "ModelTensors",
+    "local_energy_and_holes_dressed", "psi_consistency_check",
+    "exact_sum_measure", "JastrowDress",
+    "wavefunction_sum", "expand_bond_dim", "entanglement_entropy",
     "Observable", "structure_factor_spsm_row",
 ]

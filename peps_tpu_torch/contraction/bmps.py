@@ -10,6 +10,13 @@ Edge bonds are embedded at index 0 and every step renormalizes to unit
 Frobenius norm with a floor of ``finfo.tiny``, exactly as the reference,
 so amplitude ratios formed from shared environments cancel the scales.
 
+Compression schemes (``TruncParams.scheme``): "sketch" (the main path),
+"svd", "var2"/"var1" (variational fitting) and "fast" (Cholesky-LQ with
+randomized-subspace truncation). The random matrices of "sketch" and
+"fast" are arguments (:class:`SketchBlocks`, :class:`FastBlocks`), drawn by
+default once from a seeded CPU generator. Grams and triangular solves run
+in full precision (the package turns TF32 off).
+
 Every column transfer (the reference's ``_col_transfer_left/_right``) goes
 through kernel K1 (:func:`peps_tpu_torch.kernels.col_transfer.col_transfer`
 and :func:`~peps_tpu_torch.kernels.col_transfer.col_transfer_right`).
@@ -25,9 +32,10 @@ import torch
 from peps_tpu_torch.device import resolve_device
 from peps_tpu_torch.kernels.col_transfer import col_transfer, \
     col_transfer_right
-from peps_tpu_torch.linalg import TruncParams, lq, truncated_svd
+from peps_tpu_torch.linalg import TruncParams, lq, qr_safe, truncated_svd
 
 SKETCH_SEED = 20260816
+FAST_SEED = 1234
 
 
 def _tiny(t: torch.Tensor) -> float:
@@ -251,15 +259,231 @@ def absorb_row_sketch(bmps: torch.Tensor, row: torch.Tensor, chi: int,
                           torch.zeros(batch, dtype=rdt, device=dev))
 
 
+# ---------------------------------------------------------------------------
+# var2 / var1 schemes: variational fitting from the svd guess
+# ---------------------------------------------------------------------------
+
+def _edge_env(rows: int, cols: int, like: torch.Tensor, batch) -> torch.Tensor:
+    e = torch.zeros(*batch, rows, cols, dtype=like.dtype, device=like.device)
+    e[..., 0, 0] = 1.0
+    return e
+
+
+def _overlap_step_left(env, g_x, t_x):
+    return torch.einsum("...am,...avb,...mvn->...bn", env, g_x.conj(), t_x)
+
+
+def _overlap_env_right(guess, target):
+    """OR[..., x] [chi, m]: overlaps <guess|target> of columns >= x, edges
+    closed at index 0. Returns [..., Lx+1, chi, m]."""
+    lx, chi, m = guess.shape[-4], guess.shape[-3], target.shape[-3]
+    batch = torch.broadcast_shapes(guess.shape[:-4], target.shape[:-4])
+    env = _edge_env(chi, m, guess, batch)
+    rs = [env]
+    for x in range(lx - 1, -1, -1):
+        env = torch.einsum("...bn,...avb,...mvn->...am", env,
+                           guess[..., x, :, :, :].conj(),
+                           target[..., x, :, :, :])
+        rs.append(env)
+    return torch.stack(rs[::-1], dim=-3)
+
+
+def _right_canonicalize_guess(guess):
+    """LQ sweep right to left over [..., Lx, chi, D, chi] (edges closed at
+    index 0); the represented state is kept exactly."""
+    lx, chi, dv = guess.shape[-4], guess.shape[-3], guess.shape[-2]
+    batch = guess.shape[:-4]
+    gs = list(guess.unbind(-4))
+    carry = torch.eye(chi, dtype=guess.dtype, device=guess.device)
+    for x in range(lx - 1, 0, -1):
+        t = torch.einsum("...avb,...bc->...avc", gs[x], carry)
+        l_new, q = lq(t.reshape(*batch, chi, dv * chi))
+        gs[x] = q.reshape(*batch, chi, dv, chi)
+        carry = l_new
+    gs[0] = torch.einsum("...avb,...bc->...avc", gs[0], carry)
+    return gs
+
+
+def compress_variational(mps: torch.Tensor, chi: int, trunc: TruncParams,
+                         two_site: bool = True) -> CompressResult:
+    """Variational fitting [..., Lx, m, D, m] -> [..., Lx, chi, D, chi]:
+    the svd compression as the guess, then ``trunc.var_sweeps`` left-to-
+    right sweeps that maximize <guess|target> by local updates, two-site
+    (a truncated SVD re-splits each pair) or one-site (a QR moves the
+    centre). The fitted MPS carries the target's scale, so the guess's
+    log norm is not counted."""
+    res = compress(mps, chi, trunc)
+    lx, dv = mps.shape[-4], mps.shape[-2]
+    m = mps.shape[-3]
+    batch = mps.shape[:-4]
+    tp = TruncParams(chi, trunc.d_min, trunc.trunc_err)
+    target = mps.unbind(-4)
+    guess = res.bmps
+    for _ in range(trunc.var_sweeps):
+        gs = _right_canonicalize_guess(guess)
+        rights = _overlap_env_right(torch.stack(gs, dim=-4), mps)
+        ol = _edge_env(chi, m, mps, batch)
+        if two_site:
+            for x in range(lx - 1):
+                blk = torch.einsum("...am,...mvn,...nwp,...bp->...avwb", ol,
+                                   target[x], target[x + 1],
+                                   rights[..., x + 2, :, :])
+                u, s, vh, _ = truncated_svd(
+                    blk.reshape(*batch, chi * dv, dv * chi), tp)
+                gs[x] = u.reshape(*batch, chi, dv, chi)
+                gs[x + 1] = (s[..., :, None] * vh).reshape(*batch, chi, dv,
+                                                           chi)
+                ol = _overlap_step_left(ol, gs[x], target[x])
+        else:
+            # each column is replaced by its block from ol and the right
+            # overlap, so the R that the reference pushes into the next
+            # column is overwritten unread and is not formed here
+            for x in range(lx):
+                blk = torch.einsum("...am,...mvn,...bn->...avb", ol,
+                                   target[x], rights[..., x + 1, :, :])
+                if x < lx - 1:
+                    q, _ = qr_safe(blk.reshape(*batch, chi * dv, chi))
+                    blk = q.reshape(*batch, chi, dv, chi)
+                gs[x] = blk
+                ol = _overlap_step_left(ol, gs[x], target[x])
+        guess = torch.stack(gs, dim=-4)
+    out, norms = _normalize(guess, 3)
+    return CompressResult(out, torch.log(norms).sum(-1), res.trunc_err)
+
+
+# ---------------------------------------------------------------------------
+# fast scheme: Cholesky-LQ canonicalization + randomized-subspace truncation
+# ---------------------------------------------------------------------------
+
+class FastBlocks(NamedTuple):
+    """Gaussian test matrices of :func:`compress_fast`, one per bond:
+    omega [lx-1, m, chi] (m = the grown bond dimension). The reference
+    draws omega[k] from ``fold_in(PRNGKey(1234), k)``."""
+    omega: torch.Tensor
+
+
+@functools.lru_cache(maxsize=64)
+def fast_blocks(lx: int, m: int, chi: int, dtype, device) -> FastBlocks:
+    """The port's fixed test matrices: drawn once from a CPU
+    ``torch.Generator`` seeded with the reference's key (the bits differ
+    from JAX's), in float64, then cast and moved; cached per shape, dtype
+    and device, so every call and chain shares one truncated map."""
+    gen = torch.Generator().manual_seed(FAST_SEED)
+    omega = torch.randn((max(lx - 1, 0), m, chi), generator=gen,
+                        dtype=torch.float64)
+    return FastBlocks(omega.to(dtype=dtype, device=device))
+
+
+def _chol_factor(g, n: int, eps_rel: float):
+    """Lower Cholesky factor of the Gram g [..., n, n] with its trace scale
+    taken out and eps_rel jitter added, scaled back. A failed factorization
+    leaves NaNs (as JAX's does) instead of raising."""
+    tr = torch.diagonal(g, dim1=-2, dim2=-1).real.sum(-1)
+    scale = torch.clamp(tr / n, min=_tiny(g))
+    eye = torch.eye(n, dtype=g.dtype, device=g.device)
+    l, info = torch.linalg.cholesky_ex(g / scale[..., None, None].to(g.dtype)
+                                       + eps_rel * eye)
+    l = torch.where((info > 0)[..., None, None],
+                    torch.full_like(l, float("nan")), l)
+    return l * torch.sqrt(scale)[..., None, None].to(g.dtype)
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in float64 (complex128). The fast scheme forms its Grams,
+    Cholesky factors and triangular solves there: in float32 the round-off
+    of a rank-deficient Gram (its largest eigenvalue near trace/rank, as
+    at the main path's boundary) exceeds the jitter, the Cholesky fails
+    and the reference's compression is NaN (``bmps.py:526-578``)."""
+    return x.to(torch.complex128 if x.is_complex() else torch.float64)
+
+
+def _chol_lq(mat, eps_rel):
+    """mat = L @ Q with Q eps-approximately row-orthonormal; the product is
+    exact by construction (L = chol(mat mat^H), Q = L^-1 mat)."""
+    w = _wide(mat)
+    l = _chol_factor(w @ w.mH, mat.shape[-2], eps_rel)
+    q = torch.linalg.solve_triangular(l, w, upper=False)
+    return l.to(mat.dtype), q.to(mat.dtype)
+
+
+def _subspace_project(mat, omega, eps_rel, power_iters=0):
+    """Left isometry Q [..., rows, chi] spanning about the dominant column
+    space of mat (its range when rank <= chi), from the test matrix omega
+    [cols, chi], orthonormalized by Cholesky-QR plus one Newton-Schulz
+    step; returns (Q, Q^H mat)."""
+    chi = omega.shape[-1]
+    w = _wide(mat)
+    eye = torch.eye(chi, dtype=w.dtype, device=w.device)
+
+    def orthonormalize(y):
+        l = _chol_factor(y.mH @ y, chi, eps_rel)
+        q = torch.linalg.solve_triangular(l, y.mH, upper=False).mH
+        return q @ (1.5 * eye - 0.5 * (q.mH @ q))
+
+    q = orthonormalize(w @ _wide(omega))
+    for _ in range(power_iters):
+        q = orthonormalize(w @ (w.mH @ q))
+    return q.to(mat.dtype), (q.mH @ w).to(mat.dtype)
+
+
+def compress_fast(mps: torch.Tensor, chi: int, trunc: TruncParams,
+                  eps_rel: float | None = None, power_iters: int = 0,
+                  blocks: FastBlocks | None = None) -> CompressResult:
+    """Matmul-and-Cholesky compression [..., Lx, m, D, m] -> [..., Lx, chi,
+    D, chi]: right-to-left Cholesky-LQ canonicalization, then a left-to-
+    right randomized-subspace truncation with the test matrices of
+    ``blocks`` (default :func:`fast_blocks`)."""
+    lx, m, dv = mps.shape[-4], mps.shape[-3], mps.shape[-2]
+    batch = mps.shape[:-4]
+    dtype, dev = mps.dtype, mps.device
+    if eps_rel is None:
+        eps_rel = 1e-12 if torch.finfo(mps.real.dtype).bits >= 64 else 1e-5
+    if blocks is None:
+        blocks = fast_blocks(lx, m, chi, dtype, dev)
+    omega = blocks.omega
+
+    carry, q_last = _chol_lq(mps[..., lx - 1, :, :, 0], eps_rel)
+    inner = [None] * lx
+    for x in range(lx - 2, 0, -1):
+        t = torch.einsum("...avb,...bc->...avc", mps[..., x, :, :, :], carry)
+        carry, q = _chol_lq(t.reshape(*batch, m, dv * m), eps_rel)
+        inner[x] = q.reshape(*batch, m, dv, m)
+    a0 = torch.einsum("...vb,...bc->...vc", mps[..., 0, 0, :, :], carry)
+
+    q0, carry = _subspace_project(a0, omega[0], eps_rel, power_iters)
+    first = torch.zeros(*batch, chi, dv, chi, dtype=dtype, device=dev)
+    first[..., 0, :, :] = q0
+    outs = [first]
+    for x in range(1, lx - 1):
+        t = torch.einsum("...cb,...bvd->...cvd", carry, inner[x])
+        q, carry = _subspace_project(t.reshape(*batch, chi * dv, m),
+                                     omega[x], eps_rel, power_iters)
+        outs.append(q.reshape(*batch, chi, dv, chi))
+    last = torch.zeros(*batch, chi, dv, chi, dtype=dtype, device=dev)
+    last[..., :, :, 0] = torch.einsum("...cb,...bv->...cv", carry, q_last)
+    outs.append(last)
+    out, norms = _normalize(torch.stack(outs, dim=-4), 3)
+    return CompressResult(out, torch.log(norms).sum(-1),
+                          torch.zeros(batch, dtype=mps.real.dtype,
+                                      device=dev))
+
+
 def absorb_row(bmps: torch.Tensor, row: torch.Tensor, chi: int,
                trunc: TruncParams) -> CompressResult:
-    """One boundary growth step, compressed by trunc.scheme."""
+    """One boundary growth step, compressed by trunc.scheme: "sketch" never
+    forms the grown MPS; the other schemes compress multiply_mpo's."""
     if trunc.scheme == "sketch":
         return absorb_row_sketch(bmps, row, chi, trunc)
+    grown = multiply_mpo(bmps, row)
     if trunc.scheme == "svd":
-        return compress(multiply_mpo(bmps, row), chi, trunc)
-    raise NotImplementedError(
-        f"compression scheme {trunc.scheme!r}: ROADMAP queue 1, item 9")
+        return compress(grown, chi, trunc)
+    if trunc.scheme in ("var2", "var1"):
+        return compress_variational(grown, chi, trunc,
+                                    two_site=trunc.scheme == "var2")
+    if trunc.scheme == "fast":
+        return compress_fast(grown, chi, trunc, power_iters=trunc.rsvd_power)
+    raise ValueError(f"compression scheme {trunc.scheme!r}: expected one of "
+                     "sketch, svd, var2, var1, fast")
 
 
 # ---------------------------------------------------------------------------
@@ -356,6 +580,13 @@ def row_envs(top: torch.Tensor, bot: torch.Tensor, row: torch.Tensor) -> RowEnvs
                    torch.stack(log_rs[::-1] + [zero], dim=-1))
 
 
+def row_trace(envs: RowEnvs, x: int) -> torch.Tensor:
+    """psi mantissa of each row sandwich closed at column x: lefts[..., x]
+    against rights[..., x] -> [...]."""
+    return torch.einsum("...alc,...alc->...", envs.lefts[..., x, :, :, :],
+                        envs.rights[..., x, :, :, :])
+
+
 def punch_holes_row(envs: RowEnvs, top: torch.Tensor, bot: torch.Tensor):
     """All site environments of a row: [..., Lx, u, l, d, r], grouped as
     (L.T)(B.R) like the reference."""
@@ -365,6 +596,14 @@ def punch_holes_row(envs: RowEnvs, top: torch.Tensor, bot: torch.Tensor):
     br = torch.einsum("...xcdC,...xArC->...xcdAr", bot,
                       envs.rights[..., 1:, :, :, :])
     return torch.einsum("...xlcuA,...xcdAr->...xuldr", lt, br)
+
+
+def replace_one_site_traces(envs: RowEnvs, top: torch.Tensor,
+                            bot: torch.Tensor, candidates: torch.Tensor):
+    """psi mantissas with site x replaced by each candidate: candidates
+    [..., Lx, K, u, l, d, r] -> [..., Lx, K], through the row's holes."""
+    holes = punch_holes_row(envs, top, bot)
+    return torch.einsum("...xuldr,...xkuldr->...xk", holes, candidates)
 
 
 def replace_nn_site_traces(envs: RowEnvs, top: torch.Tensor, bot: torch.Tensor,
@@ -405,3 +644,40 @@ def replace_tnn_site_traces(envs: RowEnvs, top: torch.Tensor,
     t2 = col_transfer_right(sl(envs.rights, 3, lx + 1), sl(top, 2, lx), cand2,
                             sl(bot, 2, lx))
     return torch.einsum("...kalc,...jalc->...kj", t1, t2)
+
+
+# ---------------------------------------------------------------------------
+# entanglement of a boundary MPS
+# ---------------------------------------------------------------------------
+
+def entanglement_entropy(mps: torch.Tensor, x: int) -> torch.Tensor:
+    """Von Neumann entropy of a boundary MPS [..., Lx, chi, D, chi] across
+    bond x (between columns x-1 and x, 1 <= x <= Lx-1), from the
+    eigenvalues of G_L G_R (the cut's left and right Grams, trace-
+    normalized per column): the squared Schmidt values. The eigenvalues of
+    that non-Hermitian product are taken in complex128 for a real MPS, as
+    the reference takes them; ``torch.linalg.eigvals`` of a CUDA tensor
+    synchronizes with the host. Returns [...] in float64 for a real MPS."""
+    lx, chi = mps.shape[-4], mps.shape[-3]
+    batch = mps.shape[:-4]
+    tiny = _tiny(mps)
+
+    def trace_normalize(g):
+        tr = torch.diagonal(g, dim1=-2, dim2=-1).real.sum(-1)
+        return g / torch.clamp(tr, min=tiny)[..., None, None]
+
+    gl = _edge_env(chi, chi, mps, batch)
+    for t in mps[..., :x, :, :, :].unbind(-4):
+        gl = trace_normalize(torch.einsum("...aA,...avb,...AvB->...bB", gl,
+                                          t, t.conj()))
+    gr = _edge_env(chi, chi, mps, batch)
+    for t in reversed(mps[..., x:, :, :, :].unbind(-4)):
+        gr = trace_normalize(torch.einsum("...avb,...AvB,...bB->...aA", t,
+                                          t.conj(), gr))
+    prod = gl @ gr
+    lam = torch.linalg.eigvals(prod if mps.is_complex()
+                               else prod.to(torch.complex128))
+    p = torch.clamp(lam.real, min=0.0)
+    p = p / torch.clamp(p.sum(-1, keepdim=True), min=tiny)
+    return -torch.where(p > 0, p * torch.log(torch.clamp(p, min=1e-300)),
+                        torch.zeros_like(p)).sum(-1)

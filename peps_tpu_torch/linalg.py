@@ -17,13 +17,17 @@ import torch
 class TruncParams:
     """Truncation policy (same fields as the reference's ``TruncParams``).
 
-    scheme: BMPS compression, "sketch" (main path) or "svd" (accuracy
-    oracle). "var1"/"var2"/"fast" and their var_sweeps/rsvd_power come
-    with ROADMAP queue 1, item 9."""
+    scheme: BMPS compression, "sketch" (randomized two-sided, the main
+    path), "svd" (the accuracy oracle), "var2"/"var1" (variational fitting
+    from the svd guess, two-site or one-site updates, ``var_sweeps``
+    sweeps) or "fast" (Cholesky-LQ and randomized-subspace truncation,
+    ``rsvd_power`` power iterations)."""
     d_max: int
     d_min: int = 1
     trunc_err: float = 1e-12
     scheme: str = "svd"
+    var_sweeps: int = 2
+    rsvd_power: int = 0
 
 
 def _tiny(dtype) -> float:

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from peps_tpu_torch.device import resolve_device
-from peps_tpu_torch.lattice import BoundaryCondition
+from peps_tpu_torch.lattice import BoundaryCondition, boundary_mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +25,80 @@ class TPSMeta:
     phys_dim: int
     bond_dim: int
     bc: BoundaryCondition = BoundaryCondition.OPEN
+
+
+def _mask(ly, lx, d, D, like, bc=BoundaryCondition.OPEN) -> torch.Tensor:
+    return torch.as_tensor(boundary_mask(ly, lx, d, D, bc),
+                           dtype=like.real.dtype, device=like.device)
+
+
+def _normal(generator: torch.Generator, shape, dtype) -> torch.Tensor:
+    """Standard normal draws on the generator's device; a complex dtype
+    takes its real and imaginary parts from two draws."""
+    if dtype.is_complex:
+        rdt = torch.float64 if dtype == torch.complex128 else torch.float32
+        re = torch.randn(shape, generator=generator, dtype=rdt,
+                         device=generator.device)
+        im = torch.randn(shape, generator=generator, dtype=rdt,
+                         device=generator.device)
+        return torch.complex(re, im)
+    return torch.randn(shape, generator=generator, dtype=dtype,
+                       device=generator.device)
+
+
+def random_tps(generator: torch.Generator, ly: int, lx: int, phys_dim: int,
+               bond_dim: int, dtype=torch.float32,
+               bc: BoundaryCondition = BoundaryCondition.OPEN,
+               scale: float = 1.0, device=None) -> torch.Tensor:
+    """Random TPS [Ly, Lx, d, D, D, D, D], Gaussian entries from
+    ``generator`` times scale, boundary padding masked to exact zeros.
+    device None: the current CUDA device."""
+    shape = (ly, lx, phys_dim) + (bond_dim,) * 4
+    arr = _normal(generator, shape, dtype).to(resolve_device(device))
+    return arr * scale * _mask(ly, lx, phys_dim, bond_dim, arr, bc)
+
+
+def wavefunction_sum(a: torch.Tensor, b: torch.Tensor, ca: float = 1.0,
+                     cb: float = 1.0) -> torch.Tensor:
+    """ca |a> + cb |b> as one TPS of bond dimension Da + Db: the two states
+    block-diagonal in every bond, ca and cb folded into site (0, 0), and on
+    each boundary leg b's slot Da moved onto slot 0, so that the index-0
+    closure sums the two states."""
+    ly, lx, d, da = a.shape[0], a.shape[1], a.shape[2], a.shape[3]
+    dn = da + b.shape[3]
+    out = torch.zeros((ly, lx, d) + (dn,) * 4,
+                      dtype=torch.result_type(a, b), device=a.device)
+    out[:, :, :, :da, :da, :da, :da] = a
+    out[:, :, :, da:, da:, da:, da:] = b
+    out[0, 0, :, :da] *= ca
+    out[0, 0, :, da:] *= cb
+    for axis, rows, cols in ((3, 0, slice(None)), (4, slice(None), 0),
+                             (5, ly - 1, slice(None)),
+                             (6, slice(None), lx - 1)):
+        src = [rows, cols] + [slice(None)] * 5
+        dst = list(src)
+        src[axis], dst[axis] = da, 0
+        out[tuple(dst)] += out[tuple(src)]
+        out[tuple(src)] = 0.0
+    return out * _mask(ly, lx, d, dn, out)
+
+
+def expand_bond_dim(tps: torch.Tensor, new_bond_dim: int, noise: float = 0.0,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
+    """Zero-pad every virtual leg to new_bond_dim (the represented state is
+    unchanged); with noise > 0, Gaussian noise from ``generator`` on the
+    new slots only, masked off the boundary legs."""
+    ly, lx, d, db = tps.shape[0], tps.shape[1], tps.shape[2], tps.shape[3]
+    if new_bond_dim < db:
+        raise ValueError(f"new_bond_dim {new_bond_dim} < bond_dim {db}")
+    out = torch.nn.functional.pad(tps, (0, new_bond_dim - db) * 4)
+    if noise > 0.0:
+        if generator is None:
+            raise ValueError("noise > 0 needs a generator")
+        full = _normal(generator, out.shape, out.dtype).to(out.device) * noise
+        full[:, :, :, :db, :db, :db, :db] = 0.0
+        out = out + full * _mask(ly, lx, d, new_bond_dim, out)
+    return out
 
 
 def project(tps: torch.Tensor, config: torch.Tensor) -> torch.Tensor:

@@ -472,3 +472,126 @@ def test_pair_transfer_raises_on_complex_and_unplannable(dev):
     with pytest.raises(RuntimeError):       # no plan fits shared memory
         k3.pair_transfer(big, top, site, site, top)
     assert k3.pair_transfer.launches == before
+
+
+def _rest_setup(where, ly=3, lx=4, d=2, D=2, nc=4, seed=9):
+    """A seeded random OBC TPS and configurations on ``where``, f64."""
+    from peps_tpu_torch.lattice import boundary_mask
+    gen = torch.Generator().manual_seed(seed)
+    tps = torch.randn((ly, lx, d) + (D,) * 4, generator=gen,
+                      dtype=torch.float64) \
+        * torch.as_tensor(boundary_mask(ly, lx, d, D), dtype=torch.float64)
+    cfg = torch.stack([torch.randperm(ly * lx, generator=gen) % d
+                       for _ in range(nc)]).reshape(nc, ly, lx)
+    return tps.to(where), cfg.to(where)
+
+
+@pytest.mark.parametrize("scheme", ["var2", "var1", "fast"])
+def test_compress_schemes_on_the_card_match_the_cpu(dev, scheme):
+    """Amplitudes of 4 configurations contracted with each scheme (chi 3
+    truncates), f64: cuSOLVER against LAPACK, compared through the
+    gauge-free amplitude at 1e-8 relative."""
+    from peps_tpu_torch.contraction import bmps
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.tps import project
+    out = {}
+    for where in ("cpu", dev):
+        tps, cfg = _rest_setup(where)
+        m, lw = bmps.amplitude(project(tps, cfg), 3,
+                               TruncParams(3, 1, 1e-12, scheme=scheme))
+        out[str(where)] = (m * torch.exp(lw)).cpu()
+    assert _rel(out[str(dev)], out["cpu"]) < 1e-8
+
+
+def test_ratio_tables_and_dress_on_the_card_match_the_cpu(dev):
+    """compute_ratio_tables (K1 row envs, K3 pair tables) and the dressed
+    energy of a J1-J2 model, f64, at 1e-10 of the CPU's plain versions."""
+    from peps_tpu_torch.algorithm import energy
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.montecarlo.jastrow import JastrowDress
+    trunc = TruncParams(4, 1, 1e-12, scheme="sketch")
+    model = spin.j1j2_xxz(1.0, 0.8, 0.5, 0.4)
+    res = {}
+    for where in ("cpu", dev):
+        tps, cfg = _rest_setup(where)
+        v = torch.linspace(-0.2, 0.2, 144, dtype=torch.float64,
+                           device=where).reshape(12, 12)
+        dress = JastrowDress((v + v.T).fill_diagonal_(0.0),
+                             torch.tensor([0.0, 1.0], dtype=torch.float64,
+                                          device=where))
+        b1, b3 = k1.col_transfer.launches, k3.pair_transfer.launches
+        tabs = energy.compute_ratio_tables(tps, cfg, 4, trunc,
+                                           ("h", "v", "d", "ad"))
+        ev = energy.local_energy_and_holes_dressed(tps, cfg, model, dress, 4,
+                                                   trunc)
+        if where == dev:
+            assert k1.col_transfer.launches > b1
+            assert k3.pair_transfer.launches > b3
+        res[str(where)] = (tabs, ev)
+    (a, ea), (b, eb) = res["cpu"], res[str(dev)]
+    for f in ("ratio1", "ratio_h", "ratio_v", "ratio_d", "ratio_ad",
+              "log_abs_psi"):
+        assert _rel(getattr(b, f).cpu(), getattr(a, f)) < 1e-10, f
+    assert _rel(eb.e_loc.cpu(), ea.e_loc) < 1e-10
+
+
+def test_sweeps_on_the_card_match_the_cpu(dev):
+    """mc_sweep_3site and the dressed mc_sweep with the same uniforms, f64:
+    the same configurations and counts as on the CPU; K1 launched."""
+    from peps_tpu_torch.lattice import transpose_tps
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.montecarlo.jastrow import JastrowDress
+    from peps_tpu_torch.montecarlo.sweep import (draw_uniforms, mc_sweep,
+                                                 mc_sweep_3site)
+    trunc = TruncParams(4, 1, 1e-12, scheme="sketch")
+    gen = torch.Generator().manual_seed(2)
+    u3 = draw_uniforms(gen, 4, 3, 4, torch.float64, "cpu", window=3)
+    u2 = draw_uniforms(gen, 4, 3, 4, torch.float64, "cpu")
+    res = {}
+    for where in ("cpu", dev):
+        tps, cfg = _rest_setup(where)
+        v = torch.linspace(-0.3, 0.3, 144, dtype=torch.float64,
+                           device=where).reshape(12, 12)
+        dress = JastrowDress((v + v.T).fill_diagonal_(0.0),
+                             torch.tensor([0.0, 1.0], dtype=torch.float64,
+                                          device=where))
+        before = k1.col_transfer.launches
+        c3, s3 = mc_sweep_3site(tps, transpose_tps(tps), cfg, 4, trunc,
+                                uniforms=tuple(u.to(where) for u in u3))
+        c2, s2 = mc_sweep(tps, transpose_tps(tps), cfg, 4, trunc,
+                          uniforms=tuple(u.to(where) for u in u2),
+                          dress=dress)
+        if where == dev:
+            assert k1.col_transfer.launches > before
+        res[str(where)] = (c3.cpu(), int(s3.accepted), c2.cpu(),
+                           int(s2.accepted))
+    a, b = res["cpu"], res[str(dev)]
+    assert torch.equal(a[0], b[0]) and a[1] == b[1]
+    assert torch.equal(a[2], b[2]) and a[3] == b[3]
+
+
+def test_cluster_simple_update_on_the_card_matches_the_cpu(dev):
+    """One simple_update_nnn and one simple_update_triangle step from a
+    seeded random state, f64: the bond spectra (gauge-free) at 1e-8 of the
+    CPU's."""
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.peps import PEPS, SimpleUpdateParams
+    from peps_tpu_torch.peps_cluster import (simple_update_nnn,
+                                             simple_update_triangle)
+    gen = torch.Generator().manual_seed(4)
+    ly, lx, D = 3, 4, 2
+    tps, _ = _rest_setup("cpu", ly, lx, 2, D)
+    lam_v = torch.rand(ly + 1, lx, D, generator=gen, dtype=torch.float64)
+    lam_h = torch.rand(ly, lx + 1, D, generator=gen, dtype=torch.float64)
+    lam_v[[0, ly]] = torch.tensor([1.0, 0.0], dtype=torch.float64)
+    lam_h[:, [0, lx]] = torch.tensor([1.0, 0.0], dtype=torch.float64)
+    params = SimpleUpdateParams(1, 0.1, TruncParams(D, 1, 1e-12))
+    for fn, model in ((simple_update_nnn, spin.j1j2_xxz(1, 1, 0.5, 0.5)),
+                      (simple_update_triangle,
+                       spin.triangle_j1j2_heisenberg(1, 0.5))):
+        out = [fn(PEPS(*(x.to(where) for x in (tps, lam_v, lam_h))), model,
+                  params).peps for where in ("cpu", dev)]
+        assert _rel(out[1].lam_h.cpu(), out[0].lam_h) < 1e-8
+        assert _rel(out[1].lam_v.cpu(), out[0].lam_v) < 1e-8

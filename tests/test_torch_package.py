@@ -48,6 +48,13 @@ meas = measure(res.state, m, MeasurementParams(num_samples=2,
                                                num_warmup_sweeps=1),
                4, params.trunc, UpdateRule(), res.final_configs)
 assert np.isfinite(meas.stats["energy"][0]), meas.stats["energy"]
+import peps_tpu_torch.api as api
+import peps_tpu_torch.montecarlo.jastrow
+import peps_tpu_torch.peps_cluster
+nnn = api.simple_update_nnn(p0, spin.j1j2_xxz(1, 1, 0.5, 0.5),
+                            SimpleUpdateParams(1, 0.1,
+                                               TruncParams(2, 1, 1e-10)))
+assert np.isfinite(nnn.estimated_e0)
 leaked = sorted(k for k in sys.modules
                 if k == "peps_tpu" or k.startswith("peps_tpu.")
                 or (k.startswith("jax") and sys.modules[k] is not None))

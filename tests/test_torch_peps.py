@@ -140,3 +140,52 @@ def test_product_peps_and_to_tps():
     for a, b in zip(p, jp):
         assert rel(a, b) == 0.0
     assert rel(peps.to_tps(p), j_peps.to_tps(jp)) == 0.0
+
+
+def test_wavefunction_sum_amplitudes():
+    """ca|a> + cb|b> amplitude by amplitude, against the reference's TPS
+    (1e-12 relative; both are exact constructions)."""
+    rng = np.random.default_rng(3)
+    ly, lx, d = 2, 3, 2
+    a = rng.standard_normal((ly, lx, d) + (2,) * 4) * boundary_mask(ly, lx,
+                                                                     d, 2)
+    b = rng.standard_normal((ly, lx, d) + (3,) * 4) * boundary_mask(ly, lx,
+                                                                     d, 3)
+    out = tps.wavefunction_sum(torch.as_tensor(a), torch.as_tensor(b),
+                               0.7, -1.3)
+    ref = j_tps.wavefunction_sum(jnp.asarray(a), jnp.asarray(b), 0.7, -1.3)
+    assert out.shape == (ly, lx, d) + (5,) * 4
+    assert rel(out, ref) < 1e-12
+    for idx in range(2 ** (ly * lx)):
+        cfg = np.array([(idx >> k) & 1 for k in range(ly * lx)]).reshape(ly,
+                                                                          lx)
+        want = 0.7 * tps.exact_amplitude(a, cfg) \
+            - 1.3 * tps.exact_amplitude(b, cfg)
+        got = tps.exact_amplitude(out.numpy(), cfg)
+        assert abs(got - want) < 1e-12 * max(1.0, abs(want))
+
+
+def test_expand_bond_dim_and_random_tps():
+    """Padding keeps every amplitude; the noise lands on the new slots
+    only, off the boundary legs; random_tps masks the padding."""
+    gen = torch.Generator().manual_seed(0)
+    a = tps.random_tps(gen, 2, 3, 2, 2, dtype=torch.float64, device="cpu")
+    mask = boundary_mask(2, 3, 2, 2)
+    assert a.shape == (2, 3, 2) + (2,) * 4
+    assert bool((a.numpy()[mask == 0] == 0).all())
+    assert float(a.abs().sum()) > 0
+    padded = tps.expand_bond_dim(a, 4)
+    ref = j_tps.expand_bond_dim(jnp.asarray(a.numpy()), 4)
+    assert rel(padded, ref) == 0.0
+    noisy = tps.expand_bond_dim(a, 4, 0.1, torch.Generator().manual_seed(1))
+    diff = (noisy - padded).numpy()
+    assert bool((diff[:, :, :, :2, :2, :2, :2] == 0).all())
+    assert bool((diff[boundary_mask(2, 3, 2, 4) == 0] == 0).all())
+    assert np.abs(diff).max() > 0
+    assert rel(_all_amplitudes(padded.numpy()), _all_amplitudes(a.numpy())) \
+        < 1e-12
+    with pytest.raises(ValueError):
+        tps.expand_bond_dim(a, 3, 0.1)
+    c = tps.random_tps(torch.Generator().manual_seed(0), 2, 2, 2, 2,
+                       dtype=torch.complex128, device="cpu")
+    assert c.dtype == torch.complex128 and float(c.imag.abs().sum()) > 0
