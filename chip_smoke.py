@@ -90,12 +90,15 @@ Phases, one line each (failures exit non-zero before the last line):
      entanglement entropy of a boundary MPS's middle cut; on the main
      path's state and 16 configurations the local energies under var2,
      var1 and fast against svd (< 1e-2 relative), then one energy-only
-     evaluation per scheme of 16 of the chains (the svd-based schemes'
-     batched SVDs are slow on cuSOLVER). Checks: those limits, K1, K2 and
-     K3 launched.
+     evaluation per scheme, of 16 chains for sketch and fast and 2 for
+     var1 and var2 (their batched SVDs are slow on cuSOLVER: one batch of
+     16 matrices of 256 x 256 f32 is timed beside them). Checks: those
+     limits, K1, K2 and K3 launched.
 Each phase ends with a phase_end line holding its wall seconds.
 Phase 2 also holds K1 at the walker's shape (2048 items, top, bot and site
-broadcast over the start column), and K3 (pair_transfer) at the J1-J2
+broadcast over the start column) and at the 3-site window's (32 chains x 6
+candidates, top and bot broadcast over the candidates, the left env too in
+the window's first transfer), and K3 (pair_transfer) at the J1-J2
 path's shapes and forms: the BTen2 scan step (224 items) in the left and
 the right form, and the 3136-item blocks of the pair pass with a candidate
 axis: the diagonal's lblk (left form, candidates on row1) and rblk (right
@@ -132,10 +135,11 @@ LBFGS_LR = 1e-3            # the strong-Wolfe search's first trial step
 NNN_SU_STEPS = 40          # phase 8: the J1-J2 state's cluster update
 TRI_SU_STEPS = 20          # phase 8: the triangular state's
 GATE_CONFIGS = 16          # configurations of the scheme gates
-# phase 8's energy-only evaluation per scheme takes 16 of the 32 chains:
-# an absorb of the svd-based schemes runs 14-42 batched SVDs of 256 x 256
-# at about 7 ms a matrix on cuSOLVER, so var2 takes 4 s an absorb
-SCHEME_EVAL_CHAINS = 16
+# phase 8's energy-only evaluation per scheme takes 16 of the 32 chains,
+# and 2 for var1 and var2: an absorb of those runs 14-42 batched SVDs of
+# 256 x 256 a chain on cuSOLVER (timed in the phase's svd_batched line), and
+# the scheme gate before it already holds them against svd
+SCHEME_EVAL_CHAINS = {"sketch": 16, "fast": 16, "var1": 2, "var2": 2}
 SWEEPS_3SITE = 2
 TOL = {"float32": 1e-5, "float64": 1e-12}
 HBM_BPS = 3.35e12          # H100 SXM device memory rate (data sheet)
@@ -233,6 +237,11 @@ def k1_cases(dtype, device, gen):
     # stacks and of the candidates broadcast over x1 (algorithm/measure.py)
     w_tops, w_bots = r(nc, ly + 1, lx, *env), r(nc, ly + 1, lx, *env)
     w_sites, wx = r(nc, ly, lx, D, D, D, D), lx // 2
+    # the 3-site window's transfers: the chains' top row [nc, Lx] and bottom
+    # stack [nc, Ly+1, Lx] at column x broadcast over the 6 candidates, the
+    # candidates' sites gathered per chain; the first transfer's left env
+    # broadcast too, the later ones' per candidate (montecarlo/sweep.py)
+    t3, s6 = r(nc, lx, *env), r(nc, 6, D, D, D, D)
     return [
         ("sketch_v_step", "right", r(nc, *env), r(nc, *env), r(nc, D, D, D, D), z),
         ("sketch_w_step", "left", r(nc, CHI, D, losk), r(nc, *env),
@@ -250,6 +259,10 @@ def k1_cases(dtype, device, gen):
          r(nc, ly, lx - 1, 1, *env)),
         ("walker", "left", r(nc, ly, lx, *env), w_tops[:, :ly, wx, None],
          w_sites[:, :, wx, None], w_bots[:, 1:, wx, None]),
+        ("window3_first", "left", r(nc, *env)[:, None], t3[:, wx, None], s6,
+         w_bots[:, ly // 2, wx, None]),
+        ("window3_next", "left", r(nc, 6, *env), t3[:, wx, None], s6,
+         w_bots[:, ly // 2, wx, None]),
     ]
 
 
@@ -1217,7 +1230,7 @@ def cluster_su(step, device, name, fn, model, steps):
 
     su = step(name, run)
     log("bosonic_rest", step=f"{name}_steps", steps=steps,
-        seconds_per_step=rec["s"], e0_per_site=rec["e0"],
+        seconds_per_step=rec["s"], e0_nn_bonds_per_site=rec["e0"],
         trunc_err=rec["trunc_err"],
         mean_seconds_per_step_after_first=sum(rec["s"][1:])
         / max(len(rec["s"]) - 1, 1))
@@ -1290,7 +1303,7 @@ def phase_bosonic_rest(res, device, j1j2, nn_su_s_per_step, e_svd):
     log("bosonic_rest", step="j1j2_from_nnn_state", energy_per_site=e_site,
         energy_stderr_per_site=[r.energy_error / n for r in recs],
         phase7_from_heisenberg_state=j1j2,
-        su_nnn_energy_per_site=su.estimated_e0 / n,
+        su_nnn_nn_bond_energy_per_site=su.estimated_e0 / n,
         su_seconds_per_step_nn=nn_su_s_per_step,
         eval_s=[r.eval_seconds for r in recs],
         update_s=[r.update_seconds for r in recs],
@@ -1396,8 +1409,14 @@ def phase_bosonic_rest(res, device, j1j2, nn_su_s_per_step, e_svd):
             max_rel_diff_vs_svd=rel)
         if not rel < 1e-2:
             fail(f"scheme {scheme} against svd: {rel}")
-    nce = SCHEME_EVAL_CHAINS
-    for scheme in ("sketch", "fast", "var1", "var2"):
+    # what bounds the svd-based schemes: one batched SVD as their absorbs
+    # call it (linalg.truncated_svd), 16 random 256 x 256 f32 matrices
+    gen = torch.Generator(device=device).manual_seed(86)
+    mats = torch.randn(GATE_CONFIGS, 256, 256, device=device, generator=gen)
+    svd_ms = time_ms(lambda: torch.linalg.svd(mats, full_matrices=False), 3)
+    log("bosonic_rest", step="svd_batched", shape=list(mats.shape),
+        ms=svd_ms, ms_per_matrix=svd_ms / GATE_CONFIGS)
+    for scheme, nce in SCHEME_EVAL_CHAINS.items():
         tr = TruncParams(CHI, 1, 1e-6, scheme=scheme)
         gen = torch.Generator(device=device).manual_seed(83)
         t0 = time.perf_counter()

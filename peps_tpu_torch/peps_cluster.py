@@ -199,7 +199,9 @@ def simple_update_nnn(peps: PEPS, model, params: SimpleUpdateParams,
     """Simple update of a model with NN and diagonal terms: each step is
     the NN checkerboard sweep, then h_d on the canonical clusters, then
     h_ad on the flipped ones. step_observer(step=, e0=, en=, trunc_err=) is
-    called after each step. Fixed steps, as :func:`peps.simple_update`."""
+    called after each step. e0 is the NN sweep's bond-energy estimate, as
+    in the reference: the diagonal terms are not in it. Fixed steps, as
+    :func:`peps.simple_update`."""
     ly, lx, d = peps.ly, peps.lx, peps.phys_dim
     dt, dev = peps.gammas.dtype, peps.gammas.device
     tau = params.tau
