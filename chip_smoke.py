@@ -94,6 +94,34 @@ Phases, one line each (failures exit non-zero before the last line):
      var1 and var2 (their batched SVDs are slow on cuSOLVER: one batch of
      16 matrices of 256 x 256 f32 is timed beside them). Checks: those
      limits, K1, K2 and K3 launched.
+  9. the close of the bosonic OBC surface (bosonic_close), at the main
+     path's width, each step with the launch counters at 0: (a) the
+     complex64 main path: product_peps (Neel) -> simple_update with the
+     energy-stall stop (energy_abs_tol 1e-2, patience 3) and a step
+     observer (executed_steps, converged) -> to_tps -> 2 SR iterations of
+     vmc_optimize -> measure() (8 samples, the S+S- walkers), E/site in
+     (-0.70, -0.40), complex K1 and K2 launched; (b) an energy-only
+     J1-J2 (J2 = J1/2) evaluation of that complex64 state with
+     eval_chunk 8 (complex K3), its peak memory; (c) complex128 on the card
+     against the port on the CPU: one SR evaluation of J1-J2 on a seeded
+     4x4, D=4 state, chi=16, 8 chains, the same uniforms and sketch
+     blocks, energy, gradient and SR buffers within 1e-10 relative and the
+     same configurations, all three kernels launched; (d) TFIM (J = h =
+     1): the site term folded into the bonds, SU from the z-polarised
+     state, 2 SR iterations with Suwa-Todo from uniform configurations,
+     SU and VMC E/site within max(5 stderr, 3%) and both below the
+     z-polarised state's -1.75; (e) the real J1-J2 SR evaluation with
+     eval_chunk None and 8 on the same uniforms, energies within 1e-5
+     relative, both peaks printed.
+Phase 2 also holds the complex bodies of K1, K2 and K3 (complex64 to 1e-5,
+complex128 to 1e-12) at the main path's largest shapes: K1 at the pair
+traces and the walker, K2 on the 8x8 D=8 SR buffer with a psi = 0 row, K3
+at the BTen2 env step and the diagonal block (there the complex128 plain
+chain and einsum run on 4 chains' items: the full block's intermediates do
+not fit the card), each with its time, bound (a complex multiply-add is 4
+real FMAs; complex64 on the FP32 peak, complex128 on the f64 one), the
+plain version's and the yardstick's times and the plan (kernels_complex
+lines); a slow complex kernel is reported, not failed.
 Each phase ends with a phase_end line holding its wall seconds.
 Phase 2 also holds K1 at the walker's shape (2048 items, top, bot and site
 broadcast over the start column) and at the 3-site window's (32 chains x 6
@@ -141,7 +169,20 @@ GATE_CONFIGS = 16          # configurations of the scheme gates
 # the scheme gate before it already holds them against svd
 SCHEME_EVAL_CHAINS = {"sketch": 16, "fast": 16, "var1": 2, "var2": 2}
 SWEEPS_3SITE = 2
-TOL = {"float32": 1e-5, "float64": 1e-12}
+TOL = {"float32": 1e-5, "float64": 1e-12, "complex64": 1e-5,
+       "complex128": 1e-12}
+COMPLEX_DTYPES = ("complex64", "complex128")
+# phase 2's complex cases: the main path's largest shapes of each kernel
+K1_COMPLEX_CASES = ("nn_traces", "walker")
+K3_COMPLEX_CASES = ("env_step", "diag_block")
+K3_SUBSET_CHAINS = 4       # complex128 blocks: the plain chain on 4 chains
+# phase 9 (bosonic_close)
+CLOSE_SU_STEPS = 40
+CLOSE_SU_TOL = 1e-2        # energy_abs_tol of the complex main path's SU
+CLOSE_SR_ITERS = 2
+CLOSE_EVAL_CHUNK = 8
+TFIM_WARMUP_SWEEPS = 10
+SMALL = {"ly": 4, "lx": 4, "D": 4, "chi": 16, "nchains": 8}
 HBM_BPS = 3.35e12          # H100 SXM device memory rate (data sheet)
 EINSUM_1CALL = "...alc,...auA,...uldr,...cdC->...ArC"
 EINSUM_K3 = "...amnc,...auA,...umdr,...dnef,...ceC->...ArfC"
@@ -186,6 +227,15 @@ def max_err(out, ref):
     return err, err / max(ref.abs().max().item(), 1e-300)
 
 
+def _in_turns(fns, reps):
+    """Mean ms of each named fn over the turns a, b, ..., ..., b, a."""
+    order = list(fns) + list(fns)[::-1]
+    t = {k: [] for k in fns}
+    for k in order:
+        t[k].append(time_ms(fns[k], reps))
+    return {k: sum(v) / len(v) for k, v in t.items()}
+
+
 def peak_rates(device):
     """The card's f32 and f64 peaks (flop/s) from its SM count and maximum
     SM clock (nvidia-smi clocks.max.sm), two flops per fused multiply-add.
@@ -208,7 +258,8 @@ def peak_rates(device):
 
 def k1_work(env, top, site, bot, out):
     """(flops, bytes) of one K1 call on left-form operands: the three
-    contractions per item, each input read once, the output written once."""
+    contractions per item, each input read once, the output written once.
+    A complex multiply-add counts 4 real FMAs (8 flops)."""
     na, nl, nc = env.shape[-3:]
     nu, nA = top.shape[-2:]
     nd, nr = site.shape[-2:]
@@ -216,6 +267,7 @@ def k1_work(env, top, site, bot, out):
     items = math.prod(out.shape[:-3])
     flops = 2 * items * (na * nl * nc * nu * nA + nA * nc * nl * nu * nd * nr
                          + nA * nr * nc * nd * nC)
+    flops *= 4 if env.is_complex() else 1
     nbytes = sum(t.numel() for t in (env, top, site, bot, out)) \
         * env.element_size()
     return flops, nbytes
@@ -269,7 +321,7 @@ def k1_cases(dtype, device, gen):
 def k3_work(env, top, row1, row2, bot, out):
     """(flops, bytes) of one K3 call on left-form operands: the four
     products per item, each input read once (a broadcast operand once), the
-    output written once."""
+    output written once. A complex multiply-add counts 4 real FMAs."""
     na, nm, nn, nc = env.shape[-4:]
     nu, nA = top.shape[-2:]
     nd, nr = row1.shape[-2:]
@@ -280,6 +332,7 @@ def k3_work(env, top, row1, row2, bot, out):
                          + nm * nn * nc * nA * nu * nd * nr
                          + nn * nc * nA * nr * nd * ne * nf
                          + nA * nr * nf * nc * ne * nC)
+    flops *= 4 if env.is_complex() else 1
     nbytes = sum(t.numel() for t in (env, top, row1, row2, bot, out)) \
         * env.element_size()
     return flops, nbytes
@@ -350,12 +403,8 @@ def k3_phase(device, peak, gen):
             torch.cuda.synchronize()
             abs_err, rel = max_err(out, ref)
             del ref
-            t = {k: [] for k in ("plain", "kern", "one")}
-            for k in ("plain", "kern", "one", "one", "kern", "plain"):
-                fn = {"plain": plain, "kern": kern, "one": one_call}[k]
-                t[k].append(time_ms(fn, 3))
-            ms, plain_ms, one_ms = (sum(t[k]) / 2
-                                    for k in ("kern", "plain", "one"))
+            t = _in_turns({"plain": plain, "kern": kern, "one": one_call}, 3)
+            ms, plain_ms, one_ms = t["kern"], t["plain"], t["one"]
             flops, nbytes = k3_work(*views, out)
             bound_ms = max(flops / flop_rate, nbytes / HBM_BPS) * 1e3
             bound_by = "operations" if flops / flop_rate >= nbytes / HBM_BPS \
@@ -435,13 +484,9 @@ def phase_kernels(device):
             out, ref = kern(), plain()
             torch.cuda.synchronize()
             abs_err, rel = max_err(out, ref)
-            # in turns: plain, kernel, einsum, einsum, kernel, plain
-            t = {k: [] for k in ("plain", "kern", "one")}
-            for k in ("plain", "kern", "one", "one", "kern", "plain"):
-                fn = {"plain": plain, "kern": kern, "one": one_call}[k]
-                t[k].append(time_ms(fn, 10))
-            ms, plain_ms, one_ms = (sum(t[k]) / 2
-                                    for k in ("kern", "plain", "one"))
+            t = _in_turns({"plain": plain, "kern": kern, "one": one_call},
+                          10)
+            ms, plain_ms, one_ms = t["kern"], t["plain"], t["one"]
             flops, nbytes = k1_work(*views, out)
             bound_ms = max(flops / flop_rate, nbytes / HBM_BPS) * 1e3
             bound_by = "operations" if flops / flop_rate >= nbytes / HBM_BPS \
@@ -479,6 +524,12 @@ def phase_kernels(device):
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by="bytes", library_ms=None)
     rec["pair_transfer"] = k3_phase(device, peak, gen)
+    for kernel, by_dtype in phase_kernels_complex(device, peak, gen).items():
+        rec[kernel]["complex"] = {
+            dt: {k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", "max_abs_err",
+                                   "rel_err", "case")}
+            for dt, r in by_dtype.items()}
     return rec
 
 
@@ -559,6 +610,110 @@ def k2_case(k2, case, dtype, device, gen):
     del holes, psi, cfg
     torch.cuda.empty_cache()
     return rec
+
+
+def _rate(peak, dtype):
+    """The peak for a dtype: complex64 on the FP32 rate, complex128 on the
+    f64 one (the same peaks peak_rates gives the real dtypes)."""
+    import torch
+    return peak["fp32_flops" if dtype in (torch.float32, torch.complex64)
+                else "fp64_flops"]
+
+
+def _complex_record(kernel, name, dtype, out, ref, ms, plain_ms, lib_ms,
+                    flops, nbytes, peak, plan, **extra):
+    abs_err, rel = max_err(out, ref)
+    flop_s = flops / _rate(peak, dtype) if flops else 0.0
+    byte_s = nbytes / HBM_BPS
+    bound_ms = max(flop_s, byte_s) * 1e3
+    rec = {"kernel": kernel, "case": name, "dtype": str(dtype),
+           "rel_err": rel, "max_abs_err": abs_err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms, "flops": flops,
+           "bytes": nbytes, "bound_ms": bound_ms,
+           "bound_by": "operations" if flop_s >= byte_s else "bytes",
+           "pct_of_bound": 100 * bound_ms / ms, "plan": plan, **extra}
+    log("kernels_complex", **rec)
+    tol = TOL[str(dtype).split(".")[1]]
+    if not (rel <= tol):
+        fail(f"{kernel} {name} {dtype}: rel err {rel} > {tol}")
+    return rec
+
+
+def phase_kernels_complex(device, peak, gen):
+    """Phase 2, complex part: K1, K2 and K3's complex bodies (complex64 and
+    complex128) against their plain versions at the main path's largest
+    shapes (K1: the pair traces and the walker; K2: the 8x8 D=8 SR buffer
+    with a psi = 0 row; K3: the BTen2 env step and the diagonal block),
+    timed in turns with the plain version and the yardstick (one einsum
+    for K1 and K3, a copy_ of as many bytes for K2). At the diagonal block
+    the complex128 plain chain and einsum do not fit the card (past 80 GB
+    of intermediates), so they run on the first K3_SUBSET_CHAINS chains'
+    items, and the kernel is held to them there (plain_items says so).
+    Returns {kernel: {dtype: record at the largest shape}}."""
+    import torch
+    from peps_tpu_torch.kernels import centered_o as k2
+    from peps_tpu_torch.kernels import col_transfer as k1
+    from peps_tpu_torch.kernels import pair_transfer as k3
+    out = {"col_transfer": {}, "centered_o": {}, "pair_transfer": {}}
+    for dt in COMPLEX_DTYPES:
+        dtype = getattr(torch, dt)
+        for name, form, env, top, site, bot in k1_cases(dtype, device, gen):
+            if name not in K1_COMPLEX_CASES:
+                continue
+            views = (env, top, site, bot) if form == "left" else \
+                (env, top.transpose(-3, -1), site.transpose(-3, -1),
+                 bot.transpose(-3, -1))
+            res, ref = k1.col_transfer(*views), k1.col_transfer_plain(*views)
+            torch.cuda.synchronize()
+            t = _in_turns({"plain": lambda: k1.col_transfer_plain(*views),
+                           "kern": lambda: k1.col_transfer(*views),
+                           "one": lambda: torch.einsum(EINSUM_1CALL, *views)},
+                          5)
+            flops, nbytes = k1_work(*views, res)
+            rec = _complex_record("col_transfer", name, dtype, res, ref,
+                                  t["kern"], t["plain"], t["one"], flops,
+                                  nbytes, peak, k1.col_transfer_plan(*views),
+                                  items=math.prod(res.shape[:-3]))
+            if name == "nn_traces":
+                out["col_transfer"][dt] = rec
+            del res, ref
+        rec = k2_case(k2, K2_CASES[0], dtype, device, gen)
+        log("kernels_complex", kernel="centered_o", **rec)
+        if not (rec["rel_err"] <= TOL[dt]):
+            fail(f"centered_o {dt}: rel err {rec['rel_err']} > {TOL[dt]}")
+        out["centered_o"][dt] = {**rec, "library_ms": None}
+        for name, form, *ops in k3_cases(dtype, device, gen):
+            if name not in K3_COMPLEX_CASES:
+                continue
+            views = k3_views(form, ops)
+            sub = views
+            if name.endswith("block") and dtype == torch.complex128:
+                # the operands with the chain axis: 4 batch dims
+                sub = tuple(o[:K3_SUBSET_CHAINS] if o.dim() - k == 4 else o
+                            for o, k in zip(views, (4, 3, 4, 4, 3)))
+            res = k3.pair_transfer(*views)
+            ref = k3.pair_transfer_plain(*sub)
+            torch.cuda.synchronize()
+            head = res[:K3_SUBSET_CHAINS] if sub is not views else res
+            kern_ms = _in_turns({"kern": lambda: k3.pair_transfer(*views)},
+                                2)["kern"]
+            t = _in_turns({"plain": lambda: k3.pair_transfer_plain(*sub),
+                           "one": lambda: torch.einsum(EINSUM_K3, *sub)}, 2)
+            flops, nbytes = k3_work(*views, res)
+            diag = k3.pair_transfer_diagnostic(*views)
+            rec = _complex_record(
+                "pair_transfer", name, dtype, head, ref, kern_ms, t["plain"],
+                t["one"], flops, nbytes, peak, diag,
+                items=math.prod(res.shape[:-4]),
+                plain_items=math.prod(ref.shape[:-4]),
+                regs_per_thread=diag["regs_per_thread"],
+                spill_bytes=diag["spill_bytes"],
+                ctas_per_sm=diag["ctas_per_sm"])
+            if name == "diag_block":
+                out["pair_transfer"][dt] = rec
+            del res, ref, head
+            torch.cuda.empty_cache()
+    return out
 
 
 def phase_main_path(device):
@@ -1437,6 +1592,260 @@ def phase_bosonic_rest(res, device, j1j2, nn_su_s_per_step, e_svd):
     return total
 
 
+def _rel_diff(a, b):
+    return ((a - b).norm() / b.norm().clamp(min=1e-300)).item()
+
+
+def phase_bosonic_close(res, device):
+    """Phase 9: the rest of the bosonic OBC surface, at the main path's
+    width, each step with the launch counters at 0: (a) the complex64 main
+    path (SU with the energy-stall stop and a step observer, to_tps, SR,
+    measure() with the walkers); (b) a complex J1-J2 energy-only evaluation
+    with eval_chunk; (c) complex128 on the card against the port on the CPU
+    (4x4, D=4, chi=16, 8 chains, one SR evaluation of J1-J2 on the same
+    uniforms); (d) TFIM: the site term folded into the bonds, SU, then SR
+    with Suwa-Todo from uniform configurations; (e) eval_chunk on the real
+    J1-J2 SR evaluation against the unchunked one. Returns (launches summed
+    over its steps, {kernel: {complex run: launches}} of (a), (b) and
+    (c))."""
+    import numpy as np
+    import torch
+    from peps_tpu_torch.algorithm.energy import ModelTensors
+    from peps_tpu_torch.algorithm.mc_evaluator import (MCParams,
+                                                       mc_energy_grad,
+                                                       mc_energy_only)
+    from peps_tpu_torch.algorithm.measure import MeasurementParams, measure
+    from peps_tpu_torch.algorithm.vmc_optimize import VMCParams, vmc_optimize
+    from peps_tpu_torch.lattice import boundary_mask
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.montecarlo.sweep import UpdateRule, draw_uniforms
+    from peps_tpu_torch.optimizer.cg import CGParams
+    from peps_tpu_torch.optimizer.optimizer import OptimizerParams, SRParams
+    from peps_tpu_torch.peps import (SimpleUpdateParams,
+                                     fold_site_into_bonds, product_peps,
+                                     simple_update, to_tps)
+
+    n = LY * LX
+    trunc = TruncParams(CHI, 1, 1e-6, scheme="sketch")
+    total = {k: 0 for k in kernel_counts()}
+    main_c64 = {k: 0 for k in kernel_counts()}
+
+    def step(name, fn, into=None):
+        out, launches = counted_step(device, "bosonic_close", name, fn)
+        for k, v in launches.items():
+            total[k] += v
+            if into is not None:
+                into[k] += v
+        return out, launches
+
+    def sr(iters):
+        return OptimizerParams(iters, SRParams(CGParams(30, 1e-5),
+                                               diag_shift=1e-3), lr=0.05)
+
+    def unit(su):
+        tps = to_tps(su.peps)
+        return tps / tps.abs().max()
+
+    def su_params():
+        return SimpleUpdateParams(CLOSE_SU_STEPS, 0.1, TruncParams(D, 1, 1e-8),
+                                  energy_abs_tol=CLOSE_SU_TOL, patience=3,
+                                  min_steps=10)
+
+    # (a) the complex64 main path
+    model = spin.heisenberg()
+    seen = []
+    su, _ = step("su_complex64", lambda: simple_update(
+        product_peps(LY, LX, D, np.indices((LY, LX)).sum(0) % 2, PHYS,
+                     dtype=torch.complex64, device=device),
+        model.h_h, model.h_v, su_params(),
+        step_observer=lambda **kw: seen.append(kw)), main_c64)
+    log("bosonic_close", step="su_complex64_result",
+        executed_steps=su.executed_steps, converged=su.converged,
+        observer_calls=len(seen),
+        e0_per_site=[kw["e0"] / n for kw in seen],
+        trunc_err_last=seen[-1]["trunc_err"] if seen else None)
+    if len(seen) != su.executed_steps or not math.isfinite(su.estimated_e0):
+        fail(f"complex SU: {len(seen)} observer calls for "
+             f"{su.executed_steps} steps, e0 {su.estimated_e0}")
+    state = unit(su)
+    recs = []
+    params = VMCParams(
+        CHI, trunc, MCParams(num_samples=1, num_warmup_sweeps=WARMUP_SWEEPS,
+                             nchains=NCHAINS), sr(CLOSE_SR_ITERS),
+        occupancy=((0, n // 2), (1, n - n // 2)))
+    vmc, l_vmc = step("vmc_sr_complex64", lambda: vmc_optimize(
+        state, model, params, torch.Generator(device=device).manual_seed(91),
+        callback=lambda rec, st: recs.append(rec)), main_c64)
+    mp = MeasurementParams(num_samples=MEASURE_SAMPLES, num_warmup_sweeps=0,
+                           nchains=NCHAINS, chunk_size=MEASURE_CHUNK,
+                           measure_offdiag_corr=True)
+    meas, l_meas = step("measure_complex64", lambda: measure(
+        vmc.state, model, mp, CHI, trunc, UpdateRule("exchange"),
+        vmc.final_configs,
+        generator=torch.Generator(device=device).manual_seed(92)), main_c64)
+    e_site = [r.energy / n for r in recs]
+    e_m, err_m = (float(v) for v in meas.stats["energy"])
+    log("bosonic_close", step="complex64_main_path_result",
+        dtype=str(vmc.state.dtype), energy_per_site=e_site,
+        energy_stderr_per_site=[r.energy_error / n for r in recs],
+        eval_s=[r.eval_seconds for r in recs],
+        update_s=[r.update_seconds for r in recs],
+        sr_iters=[r.sr_iters for r in recs],
+        measure_energy_per_site=e_m / n,
+        measure_stderr_per_site=err_m / n,
+        sampling_wall_s=meas.sampling_wall_s,
+        samples_per_s=NCHAINS * MEASURE_SAMPLES / meas.sampling_wall_s,
+        launches=main_c64)
+    if vmc.state.dtype != torch.complex64 or len(recs) != CLOSE_SR_ITERS:
+        fail(f"complex main path: {vmc.state.dtype}, {len(recs)} records")
+    if not all(math.isfinite(e) and -0.70 < e < -0.40
+               for e in e_site + [e_m / n]):
+        fail(f"complex main path: energy per site {e_site}, measure "
+             f"{e_m / n} not in (-0.70, -0.40)")
+    if l_vmc["col_transfer"] == 0 or l_vmc["centered_o"] == 0 or \
+            l_meas["col_transfer"] == 0:
+        fail(f"complex main path: K1/K2 not launched: {l_vmc}, {l_meas}")
+
+    # (b) a complex J1-J2 energy-only evaluation, eval_chunk on
+    j1j2 = spin.j1j2_xxz(1, 1, 0.5, 0.5)
+    mt = ModelTensors.from_model(j1j2, vmc.state.dtype, device)
+    gen = torch.Generator(device=device).manual_seed(93)
+    (e_j, err_j), l_j = step(
+        "energy_only_j1j2_complex64", lambda: mc_energy_only(
+            vmc.state, vmc.final_configs, mt, CHI, trunc,
+            UpdateRule("exchange"), 1,
+            lambda: draw_uniforms(gen, NCHAINS, LY, LX, torch.float32,
+                                  device), eval_chunk=CLOSE_EVAL_CHUNK))
+    log("bosonic_close", step="energy_only_j1j2_complex64_result",
+        eval_chunk=CLOSE_EVAL_CHUNK, energy_per_site=float(e_j) / n,
+        energy_stderr_per_site=float(err_j) / n,
+        peak_mem_GB=torch.cuda.max_memory_allocated(device) / 1e9)
+    if not math.isfinite(float(e_j)) or l_j["pair_transfer"] == 0:
+        fail(f"complex J1-J2: energy {float(e_j)}, launches {l_j}")
+
+    # (c) complex128: the card against the port on the CPU
+    ly, lx, dd, chi, nc = (SMALL[k] for k in ("ly", "lx", "D", "chi",
+                                              "nchains"))
+    rng = np.random.default_rng(94)
+    shape = (ly, lx, PHYS) + (dd,) * 4
+    a = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) \
+        * boundary_mask(ly, lx, PHYS, dd)
+    base = np.array([0, 1] * (ly * lx // 2) + [0] * (ly * lx % 2))
+    cfg0 = np.stack([rng.permutation(base).reshape(ly, lx)
+                     for _ in range(nc)])
+    uni = draw_uniforms(torch.Generator().manual_seed(95), nc, ly, lx,
+                        torch.float64, "cpu")
+    small_trunc = TruncParams(chi, 1, 1e-12, scheme="sketch")
+    evals = {}
+    for where in ("cpu", device):
+        mt = ModelTensors.from_model(j1j2, torch.complex128, where)
+        u = tuple(x.to(where) for x in uni)
+
+        def run():
+            return mc_energy_grad(
+                torch.as_tensor(a, device=where),
+                torch.as_tensor(cfg0, device=where), mt, chi, small_trunc,
+                MCParams(num_samples=1, num_warmup_sweeps=0, nchains=nc),
+                lambda: u, with_sr_buffers=True)
+        if where == "cpu":
+            t0 = time.perf_counter()
+            evals["cpu"] = run()
+            cpu_s = time.perf_counter() - t0
+        else:
+            evals["card"], l_c = step("c128_card_vs_cpu", run)
+    (ev_c, cfg_c, _), (ev_g, cfg_g, _) = evals["cpu"], evals["card"]
+    diffs = {
+        "energy": abs(float(ev_g.energy) - float(ev_c.energy))
+        / abs(float(ev_c.energy)),
+        "gradient": _rel_diff(ev_g.gradient.cpu(), ev_c.gradient),
+        "o_samples": _rel_diff(ev_g.o_samples.cpu(), ev_c.o_samples),
+        "e_samples": _rel_diff(ev_g.e_samples.cpu(), ev_c.e_samples)}
+    same_cfgs = bool(torch.equal(cfg_g.cpu(), cfg_c))
+    log("bosonic_close", step="c128_card_vs_cpu_result", lattice=[ly, lx],
+        D=dd, chi=chi, chains=nc, model="j1j2_xxz(1,1,.5,.5)",
+        rel_diff=diffs, same_configurations=same_cfgs,
+        energy_per_site=float(ev_g.energy) / (ly * lx), cpu_s=cpu_s,
+        launches=l_c)
+    if not (all(v <= 1e-10 for v in diffs.values()) and same_cfgs):
+        fail(f"complex128 card against CPU: {diffs}, configurations equal "
+             f"{same_cfgs}")
+    if min(l_c.values()) == 0:
+        fail(f"complex128 card evaluation: a kernel was not launched {l_c}")
+
+    # (d) TFIM, J = h = 1: the site term folded into the bonds
+    tfim = spin.transverse_field_ising(1.0, 1.0)
+    hh, hv = fold_site_into_bonds(tfim.h_h, tfim.h_v, tfim.h_site, LY, LX)
+    su_t, _ = step("su_tfim", lambda: simple_update(
+        product_peps(LY, LX, D, np.zeros((LY, LX), int), PHYS,
+                     dtype=torch.float32, device=device), hh, hv,
+        su_params()))
+    recs_t = []
+    params = VMCParams(
+        CHI, trunc, MCParams(num_samples=2,
+                             num_warmup_sweeps=TFIM_WARMUP_SWEEPS,
+                             nchains=NCHAINS), sr(2),
+        rule=UpdateRule("suwa_todo"))
+    vt, _ = step("vmc_sr_tfim", lambda: vmc_optimize(
+        unit(su_t), tfim, params,
+        torch.Generator(device=device).manual_seed(96),
+        callback=lambda rec, st: recs_t.append(rec)))
+    e_su = su_t.estimated_e0 / n
+    e_vmc = [r.energy / n for r in recs_t]
+    err_vmc = [r.energy_error / n for r in recs_t]
+    e_prod = product_energy(tfim, np.zeros((LY, LX), int)) / n
+    tol = max(5 * err_vmc[0], 0.03 * abs(e_su)) if recs_t else 0.0
+    log("bosonic_close", step="tfim_result", su_executed_steps=
+        su_t.executed_steps, su_converged=su_t.converged,
+        su_energy_per_site=e_su, vmc_energy_per_site=e_vmc,
+        vmc_stderr_per_site=err_vmc,
+        accept_rate=[r.accept_rate for r in recs_t],
+        z_polarised_energy_per_site=e_prod, su_vs_vmc_tolerance=tol)
+    if not (len(e_vmc) == 2 and all(math.isfinite(e) for e in e_vmc + [e_su])
+            and bool(torch.isfinite(vt.state).all())):
+        fail(f"tfim: energies SU {e_su}, VMC {e_vmc}")
+    if not abs(e_vmc[0] - e_su) <= tol:
+        fail(f"tfim: SU {e_su} and VMC {e_vmc[0]} per site differ by more "
+             f"than {tol}")
+    if not all(e < e_prod for e in e_vmc + [e_su]):
+        fail(f"tfim: SU {e_su} or VMC {e_vmc} not below the z-polarised "
+             f"state's {e_prod}")
+
+    # (e) eval_chunk on the real J1-J2 SR evaluation
+    mt = ModelTensors.from_model(j1j2, res.state.dtype, device)
+    energies, peaks = {}, {}
+    for chunk in (None, CLOSE_EVAL_CHUNK):
+        gen = torch.Generator(device=device).manual_seed(97)
+        (ev, _, _), _ = step(f"sr_eval_j1j2_eval_chunk_{chunk}",
+                             lambda: mc_energy_grad(
+                                 res.state, res.final_configs, mt, CHI, trunc,
+                                 MCParams(num_samples=1, num_warmup_sweeps=0,
+                                          nchains=NCHAINS, eval_chunk=chunk),
+                                 lambda: draw_uniforms(gen, NCHAINS, LY, LX,
+                                                       torch.float32, device),
+                                 with_sr_buffers=True))
+        peaks[str(chunk)] = torch.cuda.max_memory_allocated(device) / 1e9
+        energies[str(chunk)] = float(ev.energy)
+        del ev
+    rel = abs(energies[str(CLOSE_EVAL_CHUNK)] - energies["None"]) \
+        / abs(energies["None"])
+    log("bosonic_close", step="eval_chunk_result", chains=NCHAINS,
+        energy_per_site={k: v / n for k, v in energies.items()},
+        rel_diff=rel, peak_mem_GB=peaks)
+    if not rel <= 1e-5:
+        fail(f"eval_chunk {CLOSE_EVAL_CHUNK} against unchunked: {rel}")
+
+    log("bosonic_close", step="total", launches=total)
+    missing = [k for k, v in total.items() if v == 0]
+    if missing:
+        fail(f"bosonic_close: kernels not launched: {missing}")
+    complex_launches = {"complex64_main_path": main_c64,
+                        "complex64_j1j2_eval_chunk": l_j,
+                        "complex128_card_vs_cpu": l_c}
+    return total, {k: {run: v[k] for run, v in complex_launches.items()}
+                   for k in total}
+
+
 def main():
     try:
         import torch
@@ -1479,6 +1888,8 @@ def main():
     launches_j1j2, j1j2 = timed("j1j2", phase_j1j2, res, device)
     launches_rest = timed("bosonic_rest", phase_bosonic_rest, res, device,
                           j1j2, su_s, e_svd)
+    launches_close, launches_cx = timed("bosonic_close",
+                                        phase_bosonic_close, res, device)
 
     record = {"kernels": [
         {"name": "col_transfer", "route": "cuda",
@@ -1489,6 +1900,8 @@ def main():
          "launches_optimizers": launches_opt["col_transfer"],
          "launches_j1j2": launches_j1j2["col_transfer"],
          "launches_bosonic_rest": launches_rest["col_transfer"],
+         "launches_bosonic_close": launches_close["col_transfer"],
+         "launches_complex": launches_cx["col_transfer"],
          **kern["col_transfer"]},
         {"name": "centered_o", "route": "cuda",
          "source": "peps_tpu_torch/csrc/centered_o.cu",
@@ -1497,12 +1910,16 @@ def main():
          "launches_optimizers": launches_opt["centered_o"],
          "launches_j1j2": launches_j1j2["centered_o"],
          "launches_bosonic_rest": launches_rest["centered_o"],
+         "launches_bosonic_close": launches_close["centered_o"],
+         "launches_complex": launches_cx["centered_o"],
          **kern["centered_o"]},
         {"name": "pair_transfer", "route": "cuda",
          "source": "peps_tpu_torch/csrc/pair_transfer.cu",
          "replaces": "peps_tpu/algorithm/energy.py:132",
          "launches": launches_j1j2["pair_transfer"],
          "launches_bosonic_rest": launches_rest["pair_transfer"],
+         "launches_bosonic_close": launches_close["pair_transfer"],
+         "launches_complex": launches_cx["pair_transfer"],
          **kern["pair_transfer"]},
     ]}
     print(json.dumps(record), flush=True)

@@ -6,8 +6,11 @@ every chain. The bottom env stacks built for the evaluation are handed to
 the next step's first sweep (the pre-sweep network is exactly the evaluated
 one), as in the reference. For SR and MinSR the holes of all steps are
 kept and the centered, scaled sample matrix is written once by kernel K2; the
-un-centered O buffer is never formed. The reference's 1D flattening of the
-holes is a TPU tile-padding workaround and is not ported.
+un-centered O buffer is never formed. ``MCParams.eval_chunk`` runs the local
+energies and holes over slices of that many chains; as in the reference,
+the env stacks stay at full chain batch, so it bounds only the table and
+hole intermediates. The reference's 1D flattening of the holes is a TPU
+tile-padding workaround and is not ported.
 """
 from __future__ import annotations
 
@@ -34,6 +37,9 @@ class MCParams:
     num_warmup_sweeps: int = 100
     sweeps_between_samples: int = 1
     nchains: int = 64
+    # chains per local-energy pass (None: all at once); the env stacks stay
+    # at full chain batch, so it bounds the table and hole intermediates
+    eval_chunk: int | None = None
 
 
 UniformSource = Callable[[], tuple]
@@ -41,13 +47,16 @@ UniformSource = Callable[[], tuple]
 
 def _mc_collect(tps, configs, model: ModelTensors, chi, trunc, n_samples,
                 with_sr, uniform_source, rule: UpdateRule = UpdateRule(),
-                sweeps_between: int = 1, with_grad: bool = True):
+                sweeps_between: int = 1, with_grad: bool = True,
+                eval_chunk: int | None = None):
     """Sample loop: sweeps_between sweeps per sample step, the first one
-    from the evaluated network's bottom stack. Returns (configs', accepted,
-    trials, outs) with outs a dict: e_locs [S, nc], log_psi [S, nc]; with
-    SR: holes [S, nc, Ly, Lx, D^4], psi_loc [S, nc, Ly, Lx], cfgs [S, nc,
-    Ly, Lx]; with a plain gradient: o_sum and eo_sum [P] (sums of O and
-    E_loc O over samples); with_grad=False keeps the energies only."""
+    from the evaluated network's bottom stack; the local energies and
+    holes of eval_chunk chains at a time (None: all). Returns (configs',
+    accepted, trials, outs) with outs a dict: e_locs [S, nc], log_psi
+    [S, nc]; with SR: holes [S, nc, Ly, Lx, D^4], psi_loc [S, nc, Ly, Lx],
+    cfgs [S, nc, Ly, Lx]; with a plain gradient: o_sum and eo_sum [P] (sums
+    of O and E_loc O over samples); with_grad=False keeps the energies
+    only."""
     tps_t = transpose_tps(tps)
     ly, lx, d = tps.shape[0], tps.shape[1], tps.shape[2]
     configs = configs.long()
@@ -68,24 +77,32 @@ def _mc_collect(tps, configs, model: ModelTensors, chi, trunc, n_samples,
             tri = tri + st.trials
         stacks = bmps.all_env_stacks(project(tps, configs), chi, trunc)
         bots = stacks.bots
-        e, rp, log_abs, _ = _local_energy(tps, configs, model, chi, trunc,
-                                          stacks)
-        outs["e_locs"].append(e)
-        outs["log_psi"].append(log_abs)
-        if not with_grad:
-            continue
-        if with_sr:
-            nc = configs.shape[0]
-            outs["holes"].append(rp.holes.reshape(nc, ly, lx, -1))
-            outs["psi_loc"].append(rp.psi_loc)
+        nc = configs.shape[0]
+        step = {k: [] for k in ("e_locs", "log_psi", "holes", "psi_loc")}
+        for sl in bmps.chain_slices(nc, eval_chunk):
+            c = configs[sl]
+            e, rp, log_abs, _ = _local_energy(tps, c, model, chi, trunc,
+                                              bmps.sub_stacks(stacks, sl))
+            step["e_locs"].append(e)
+            step["log_psi"].append(log_abs)
+            if not with_grad:
+                continue
+            if with_sr:
+                step["holes"].append(rp.holes.reshape(c.shape[0], ly, lx,
+                                                      -1))
+                step["psi_loc"].append(rp.psi_loc)
+            else:
+                o = o_tensor_of(rp.holes, rp.psi_loc, c, d) \
+                    .reshape(c.shape[0], -1)
+                step_o = o.conj().sum(0)
+                step_eo = (e[:, None] * o.conj()).sum(0)
+                o_sum = step_o if o_sum is None else o_sum + step_o
+                eo_sum = step_eo if eo_sum is None else eo_sum + step_eo
+        for k, parts in step.items():
+            if parts:
+                outs[k].append(torch.cat(parts))
+        if with_grad and with_sr:
             outs["cfgs"].append(configs)
-        else:
-            o = o_tensor_of(rp.holes, rp.psi_loc, configs, d) \
-                .reshape(configs.shape[0], -1)
-            step_o = o.conj().sum(0)
-            step_eo = (e[:, None] * o.conj()).sum(0)
-            o_sum = step_o if o_sum is None else o_sum + step_o
-            eo_sum = step_eo if eo_sum is None else eo_sum + step_eo
     outs = {k: torch.stack(v) for k, v in outs.items() if v}
     if o_sum is not None:
         outs["o_sum"], outs["eo_sum"] = o_sum, eo_sum
@@ -104,13 +121,14 @@ def _center_scale(holes, psi_loc, cfgs, d):
 
 def mc_energy_only(tps, configs, model: ModelTensors, chi: int,
                    trunc: TruncParams, rule: UpdateRule, n_samples: int,
-                   uniform_source: UniformSource, sweeps_between: int = 1):
+                   uniform_source: UniformSource, sweeps_between: int = 1,
+                   eval_chunk: int | None = None):
     """Energy-only MC estimate, no holes kept and no gradient (the
-    reference's EvaluateEnergyOnly). Returns (energy, stderr) as 0-d
-    tensors."""
+    reference's EvaluateEnergyOnly); eval_chunk as in MCParams. Returns
+    (energy, stderr) as 0-d tensors."""
     _, _, _, outs = _mc_collect(tps, configs, model, chi, trunc, n_samples,
                                 False, uniform_source, rule, sweeps_between,
-                                with_grad=False)
+                                with_grad=False, eval_chunk=eval_chunk)
     return mean_and_binned_error(outs["e_locs"].real)
 
 
@@ -127,7 +145,8 @@ def mc_energy_grad(tps, configs, model: ModelTensors, chi: int,
     integer (the non-finite sample count) back to the host."""
     configs, acc, tri, outs = _mc_collect(
         tps, configs, model, chi, trunc, params.num_samples, with_sr_buffers,
-        uniform_source, rule, params.sweeps_between_samples)
+        uniform_source, rule, params.sweeps_between_samples,
+        eval_chunk=params.eval_chunk)
     e_locs = outs["e_locs"]
     s, c = e_locs.shape
     n = s * c

@@ -36,7 +36,6 @@ from peps_tpu_torch.algorithm.energy import (_local_energy,
                                              needs_transposed_frame)
 from peps_tpu_torch.algorithm.registry import MeasureContext, spin_registry
 from peps_tpu_torch.contraction import bmps
-from peps_tpu_torch.device import require_real_on_card
 from peps_tpu_torch.kernels.col_transfer import col_transfer
 from peps_tpu_torch.lattice import BoundaryCondition, transpose_tps
 from peps_tpu_torch.linalg import TruncParams
@@ -143,23 +142,6 @@ def standard_spin_observables(d: int = 2):
     return {"sz_values": sz, "op_a": sp, "op_b": sp.T}
 
 
-def _chain_slices(nc: int, chunk: int | None):
-    step = chunk or nc
-    return [slice(i, min(i + step, nc)) for i in range(0, nc, step)]
-
-
-def _cat_stacks(parts):
-    if parts[0] is None:
-        return None
-    if len(parts) == 1:
-        return parts[0]
-    return type(parts[0])(*(torch.cat(f) for f in zip(*parts)))
-
-
-def _sub_stacks(stacks, sl):
-    return None if stacks is None else type(stacks)(*(f[sl] for f in stacks))
-
-
 def _sample_outputs(tps, tps_t, cfgs, mt, chi, trunc, registry, params):
     """Outputs of one sample step for every chain (on the device) and the
     bottom stack of cfgs, which the next step's first sweep starts from."""
@@ -170,7 +152,7 @@ def _sample_outputs(tps, tps_t, cfgs, mt, chi, trunc, registry, params):
     outs = {"energy": [], "log_abs_psi": []}
     outs.update({ob.key: [] for ob in registry})
     stacks_all, stacks_t_all = [], []
-    for sl in _chain_slices(cfgs.shape[0], params.eval_chunk):
+    for sl in bmps.chain_slices(cfgs.shape[0], params.eval_chunk):
         c = cfgs[sl]
         stacks = bmps.all_env_stacks(project(tps, c), chi, trunc)
         stacks_t = bmps.all_env_stacks(project(tps_t, c.transpose(1, 2)),
@@ -184,12 +166,13 @@ def _sample_outputs(tps, tps_t, cfgs, mt, chi, trunc, registry, params):
             outs[ob.key].append(ob.compute(ctx))
         stacks_all.append(stacks)
         stacks_t_all.append(stacks_t)
-    stacks, stacks_t = _cat_stacks(stacks_all), _cat_stacks(stacks_t_all)
+    stacks = bmps.cat_stacks(stacks_all)
+    stacks_t = bmps.cat_stacks(stacks_t_all)
     zero = torch.zeros((), dtype=outs["energy"][0].dtype, device=tps.device)
-    for sl in _chain_slices(cfgs.shape[0], params.env_chunk):
+    for sl in bmps.chain_slices(cfgs.shape[0], params.env_chunk):
         ctx = MeasureContext(tps, tps_t, cfgs[sl], zero, chi, trunc,
-                             _sub_stacks(stacks, sl),
-                             _sub_stacks(stacks_t, sl))
+                             bmps.sub_stacks(stacks, sl),
+                             bmps.sub_stacks(stacks_t, sl))
         for ob in walkers:
             outs[ob.key].append(ob.compute(ctx))
     return {k: torch.cat(v) for k, v in outs.items()}, stacks.bots
@@ -216,7 +199,6 @@ def measure(tps: torch.Tensor, model, params: MeasurementParams, chi: int,
     (synchronized) before the clock starts, so it counts the sample loop
     alone, the walker observables included (the reference times its
     walker pass outside the clock)."""
-    require_real_on_card(tps, "measure")
     if bc is not None and bc != BoundaryCondition.OPEN:
         raise NotImplementedError(
             "measurement with periodic boundaries: ROADMAP queue 1, items "

@@ -21,7 +21,6 @@ import torch
 from peps_tpu_torch.algorithm.energy import bosonic_model_tensors
 from peps_tpu_torch.algorithm.mc_evaluator import (MCParams, mc_energy_grad,
                                                    mc_energy_only)
-from peps_tpu_torch.device import require_real_on_card
 from peps_tpu_torch.lattice import transpose_tps
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.montecarlo.engine import (ensure_validity,
@@ -61,8 +60,9 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
                  callback=None,
                  probe_uniforms: Callable[[], tuple] | None = None
                  ) -> VMCResult:
-    """Optimize a real or complex OBC TPS for a bosonic model; a complex
-    one runs on the CPU only (``device.require_real_on_card``).
+    """Optimize a real or complex OBC TPS for a bosonic model, on
+    tps.device (the kernels take float32, float64, complex64 and
+    complex128).
 
     generator: a ``torch.Generator`` on tps.device (default: seeded 0).
     configs: optional initial configurations [nc, Ly, Lx] (default: drawn
@@ -72,7 +72,6 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
     (default: drawn from generator; the reference keys probe n with
     fold_in(sampler key, n) instead). A probe samples from the current
     configurations and leaves them as they were."""
-    require_real_on_card(tps, "vmc_optimize")
     ly, lx, d = tps.shape[0], tps.shape[1], tps.shape[2]
     dev = tps.device
     if getattr(model, "phys_dim", d) != d:
@@ -123,7 +122,8 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
         e, _ = mc_energy_only(state, sampler["configs"], mt, params.chi,
                               params.trunc, params.rule,
                               params.mc.num_samples, probe_uniforms,
-                              params.mc.sweeps_between_samples)
+                              params.mc.sweeps_between_samples,
+                              eval_chunk=params.mc.eval_chunk)
         return e
 
     result = iterative_optimize(tps, evaluate, params.optimizer,

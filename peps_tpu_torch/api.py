@@ -25,7 +25,8 @@ from peps_tpu_torch.lattice import BoundaryCondition
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.models import spin
 from peps_tpu_torch.montecarlo.engine import (init_configs_occupancy,
-                                              init_configs_uniform)
+                                              init_configs_uniform,
+                                              load_configs, save_configs)
 from peps_tpu_torch.montecarlo.jastrow import JastrowDress
 from peps_tpu_torch.montecarlo.sweep import UpdateRule
 from peps_tpu_torch.optimizer.optimizer import (AdaGradParams, AdamParams,
@@ -53,7 +54,7 @@ __all__ = [
     "simple_update_nnn", "simple_update_triangle",
     "spin", "ModelTensors",
     "local_energy_and_holes_dressed", "psi_consistency_check",
-    "exact_sum_measure", "JastrowDress",
+    "exact_sum_measure", "JastrowDress", "load_configs", "save_configs",
     "wavefunction_sum", "expand_bond_dim", "entanglement_entropy",
     "Observable", "structure_factor_spsm_row",
 ]

@@ -522,6 +522,26 @@ def all_env_stacks(tn: torch.Tensor, chi: int, trunc: TruncParams) -> EnvStacks:
                      torch.flip(flog, [-1]))
 
 
+def chain_slices(nc: int, chunk: int | None) -> list:
+    """Slices of ``chunk`` chains (all nc at once for None) covering nc."""
+    step = chunk or nc
+    return [slice(i, min(i + step, nc)) for i in range(0, nc, step)]
+
+
+def sub_stacks(stacks: EnvStacks | None, sl: slice) -> EnvStacks | None:
+    """The chains sl of env stacks batched over a leading chain axis."""
+    return None if stacks is None else type(stacks)(*(f[sl] for f in stacks))
+
+
+def cat_stacks(parts: list) -> EnvStacks | None:
+    """Env stacks of consecutive chain slices joined along the chain axis."""
+    if parts[0] is None:
+        return None
+    if len(parts) == 1:
+        return parts[0]
+    return type(parts[0])(*(torch.cat(f) for f in zip(*parts)))
+
+
 def close_boundary(final: torch.Tensor) -> torch.Tensor:
     """Index-0 closure of a fully absorbed boundary MPS [..., Lx, chi, D, chi]."""
     v = final[..., 0, 0, 0, :]

@@ -59,6 +59,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "complex_ops.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -344,6 +346,125 @@ int launch(const T* holes, const T* psi, const int64_t* cfg, T* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------- complex body --
+//
+// complex64 / complex128: O = [cfg == p] holes / psi (psi = 1 where psi ==
+// 0), centered over the samples and scaled by the real 1/sqrt(Ns), with no
+// conjugate (the SR solve conjugates later, in conj(a)^T eps). A separate,
+// simple body; the real one above is untouched. What bounds it: bytes, as
+// the real one (twice the bytes a value). Design: one CTA of 8 warps owns
+// a (site, chunk of 32 columns of K); a warp's lanes cover the chunk's 32
+// consecutive columns of a row (256 or 512 contiguous bytes), the warps
+// stride over the rows. The first pass sums O over the rows for every p
+// into registers, then shared memory reduces over the warps; the second
+// pass reads the chunk again (from L2: the CTA has just read it) and writes
+// (O - mean_p) / sqrt(Ns) for each p. holes / psi is Smith's scaled
+// division (complex_ops.cuh: cx_div), no reciprocal, so a psi near the
+// type's range overflows nothing that h / psi does not; [cfg == p] is a
+// multiply by 0 or 1, so a NaN or inf of h / psi spreads over every p of
+// its column as in the plain version.
+// The launch bounds name one CTA an SM as the floor: without it ptxas kept
+// the complex128 d <= 2 body to 64 registers and spilled (56-92 registers,
+// no spill, with it).
+
+constexpr int kCxCols = 32;
+
+struct CxArgs {
+  int64_t ns, sites, k, chunks;
+  int d;
+};
+
+template <typename R, int DP, typename V = typename CxOf<R>::type>
+__global__ void __launch_bounds__(kThreads, 1)
+centered_o_cx_kernel(const V* __restrict__ holes, const V* __restrict__ psi,
+                     const int64_t* __restrict__ cfg, V* __restrict__ out,
+                     const CxArgs a) {
+  __shared__ V s_red[kWarps][DP][kCxCols];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t site = blockIdx.x / a.chunks;
+  const int64_t col = (blockIdx.x % a.chunks) * kCxCols + lane;
+  const bool ok = col < a.k;
+  const V zero = cx_zero<V>();
+  const int64_t p_len = a.sites * a.d * a.k;
+
+  auto value = [&](int64_t s, int& state) {   // holes / safe(psi) of row s
+    const int64_t row = s * a.sites + site;
+    V ps = psi[row];
+    if (ps.x == R(0) && ps.y == R(0)) ps.x = R(1);
+    const int64_t c = cfg[row];
+    state = c >= 0 && c < a.d ? static_cast<int>(c) : -1;
+    return cx_div(ok ? holes[row * a.k + col] : zero, ps);
+  };
+
+  V sum[DP];
+#pragma unroll
+  for (int q = 0; q < DP; ++q) sum[q] = zero;
+  for (int64_t s = warp; s < a.ns; s += kWarps) {
+    int state;
+    const V x = value(s, state);
+#pragma unroll
+    for (int q = 0; q < DP; ++q)
+      sum[q] = cx_add(sum[q], cx_scale(x, R(q == state ? 1 : 0)));
+  }
+#pragma unroll
+  for (int q = 0; q < DP; ++q) s_red[warp][q][lane] = sum[q];
+  __syncthreads();
+  const R inv_ns = R(1) / static_cast<R>(a.ns);
+  V mean[DP];
+#pragma unroll
+  for (int q = 0; q < DP; ++q) {
+    V t = zero;
+    for (int w = 0; w < kWarps; ++w) t = cx_add(t, s_red[w][q][lane]);
+    mean[q] = cx_scale(t, inv_ns);
+  }
+  const R scale = R(1) / sqrt(static_cast<R>(a.ns));
+  for (int64_t s = warp; s < a.ns; s += kWarps) {
+    int state;
+    const V x = value(s, state);
+    if (!ok) continue;
+    V* o = out + s * p_len + site * a.d * a.k + col;
+#pragma unroll
+    for (int q = 0; q < DP; ++q) {
+      if (q >= a.d) break;
+      V y = cx_scale(x, R(q == state ? 1 : 0));
+      y.x -= mean[q].x;
+      y.y -= mean[q].y;
+      o[q * a.k] = cx_scale(y, scale);
+    }
+  }
+}
+
+// args = ns, sites, k, d, col_chunks, dp (kernels/centered_o.py:
+// centered_o_plan for a complex dtype).
+template <typename R>
+int launch_cx(const void* holes, const void* psi, const int64_t* cfg,
+              void* out, const int64_t* args, void* stream) {
+  using V = typename CxOf<R>::type;
+  CxArgs a;
+  a.ns = args[0];
+  a.sites = args[1];
+  a.k = args[2];
+  a.d = static_cast<int>(args[3]);
+  a.chunks = args[4];
+  const int64_t dp = args[5];
+  if (a.ns < 1 || a.sites < 1 || a.k < 1 || a.d < 1 || a.d > dp ||
+      a.chunks * kCxCols < a.k || (a.chunks - 1) * kCxCols >= a.k ||
+      a.sites * a.chunks >= (int64_t(1) << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(a.sites * a.chunks);
+  const V* h = static_cast<const V*>(holes);
+  const V* ps = static_cast<const V*>(psi);
+  V* o = static_cast<V*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dp == 2)
+    centered_o_cx_kernel<R, 2><<<grid, kThreads, 0, st>>>(h, ps, cfg, o, a);
+  else if (dp == 4)
+    centered_o_cx_kernel<R, 4><<<grid, kThreads, 0, st>>>(h, ps, cfg, o, a);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -357,6 +478,16 @@ int centered_o_f64(const double* holes, const double* psi,
                    const int64_t* cfg, double* out, const int64_t* args,
                    void* stream) {
   return launch<double>(holes, psi, cfg, out, args, stream);
+}
+
+int centered_o_c64(const void* holes, const void* psi, const int64_t* cfg,
+                   void* out, const int64_t* args, void* stream) {
+  return launch_cx<float>(holes, psi, cfg, out, args, stream);
+}
+
+int centered_o_c128(const void* holes, const void* psi, const int64_t* cfg,
+                    void* out, const int64_t* args, void* stream) {
+  return launch_cx<double>(holes, psi, cfg, out, args, stream);
 }
 
 }  // extern "C"

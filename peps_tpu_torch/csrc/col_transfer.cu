@@ -58,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "complex_ops.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -648,6 +650,218 @@ int launch(const T* env, const T* top, const T* site, const T* bot, T* out,
   return launch_cfg<T, SplitCfg>(env, top, site, bot, out, m, p, dev, stream);
 }
 
+// ------------------------------------------------------ complex bodies --
+//
+// complex64 / complex128: the same transfer, with no conjugate anywhere
+// (col_transfer_plain's three einsums). A separate, simple body; the real
+// bodies above are untouched. What bounds it: operations, 4 real FMAs per
+// complex multiply-add (chi = 32, D = 8, c = C = 32: 67 MFLOP an item), on
+// the FP32 CUDA cores for complex64 and the FP64 ones for complex128 (no
+// tensor cores take complex here). Design: one CTA owns an (item, tile of
+// ta values of A) and walks c in chunks of kc values; site is copied into
+// shared memory once and the top tile once, env and bot per chunk, each
+// with the operand's own strides (the right form's transposed views and
+// stride-0 broadcasts alike) and zero-filled past the last c or A. Per
+// chunk the three products run as one loop nest each, every operand in
+// shared memory, each thread walking its outputs by the block stride:
+//   step 1  X1[u][l][c'][A'] = sum_a  E[a][l][c'] Tt[a][u][A']
+//   step 2  X2[c'][d][r][A'] = sum_ul X1[u][l][c'][A'] S[u][l][d][r]
+//   step 3  acc[A'][r][C]   += sum_c'd X2[c'][d][r][A'] B[c'][d][C]
+// A' runs fastest over the lanes in steps 1-2 (the other operand's loads
+// broadcast), C in step 3 (B's loads consecutive, X2's broadcast); the
+// output tile stays in registers, at most kCxOut values a thread. ta and kc
+// come from kernels/col_transfer.py:col_transfer_complex_plan, and
+// cx_layout here recomputes the layout and refuses a plan that does not
+// match it or does not fit.
+// The launch bounds name one CTA an SM as the floor: without it ptxas kept
+// these bodies to 48-64 registers and spilled (89-114 registers, no spill,
+// with it).
+
+constexpr int kCxOut = 8;   // output values a thread keeps in registers
+constexpr int kMetaLen = kMaxBatch + 3 * (kMaxBatch + 3) + (kMaxBatch + 4) + 8;
+
+struct CxPlan {
+  int ta, kc;
+  int64_t oS, oT, oE, oB, oX1, oX2;   // region offsets (elements)
+  int64_t smem;                       // bytes
+};
+
+bool cx_layout(const Meta& m, int ta, int kc, int elem, CxPlan& p) {
+  p.ta = ta;
+  p.kc = kc;
+  int64_t off = 0;
+  p.oS = off;
+  off += int64_t(m.nu) * m.nl * m.nd * m.nr;
+  p.oT = off;
+  off += int64_t(m.na) * m.nu * ta;
+  p.oE = off;
+  off += int64_t(m.na) * m.nl * kc;
+  p.oB = off;
+  off += int64_t(kc) * m.nd * m.nC;
+  p.oX1 = off;
+  off += int64_t(m.nu) * m.nl * kc * ta;
+  p.oX2 = off;
+  off += int64_t(kc) * m.nd * m.nr * ta;
+  p.smem = off * elem;
+  return ta >= 1 && kc >= 1 && ta <= m.nA && kc <= m.nc &&
+         p.smem <= int64_t(kSmemLimit) &&
+         int64_t(ta) * m.nr * m.nC <= int64_t(kCxOut) * kThreads;
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads, 1)
+col_transfer_cx_kernel(const V* __restrict__ env, const V* __restrict__ top,
+                       const V* __restrict__ site, const V* __restrict__ bot,
+                       V* __restrict__ out, const Meta m, const CxPlan p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  V* const sm = reinterpret_cast<V*>(smem_raw);
+  V* const S = sm + p.oS;
+  V* const Tt = sm + p.oT;
+  V* const E = sm + p.oE;
+  V* const B = sm + p.oB;
+  V* const X1 = sm + p.oX1;
+  V* const X2 = sm + p.oX2;
+  const int tid = threadIdx.x;
+  const int ta = p.ta, kc = p.kc;
+  const int na = m.na, nl = m.nl, nu = m.nu, nd = m.nd, nr = m.nr;
+  const int nC = m.nC;
+  const int n_tiles = cdiv(m.nA, ta);
+  const int64_t item = blockIdx.x / n_tiles;
+  const int A0 = static_cast<int>(blockIdx.x % n_tiles) * ta;
+  int64_t rem = item;
+  int64_t off_e = 0, off_t = 0, off_s = 0, off_b = 0;
+  for (int k = kMaxBatch - 1; k >= 0; --k) {
+    const int64_t i = rem % m.nb[k];
+    rem /= m.nb[k];
+    off_e += i * m.se[k];
+    off_t += i * m.st[k];
+    off_s += i * m.ss[k];
+    off_b += i * m.sb[k];
+  }
+  const V* const e = env + off_e;
+  const V* const tp = top + off_t;
+  const V* const st = site + off_s;
+  const V* const b = bot + off_b;
+  const int64_t* se = m.se + kMaxBatch;   // a, l, c
+  const int64_t* stt = m.st + kMaxBatch;  // a, u, A
+  const int64_t* ss = m.ss + kMaxBatch;   // u, l, d, r
+  const int64_t* sb = m.sb + kMaxBatch;   // c, d, C
+  const V zero = cx_zero<V>();
+
+  for (int i = tid; i < nu * nl * nd * nr; i += kThreads) {
+    const int r = i % nr, q = i / nr, d = q % nd, q2 = q / nd;
+    const int l = q2 % nl, u = q2 / nl;
+    S[i] = st[u * ss[0] + l * ss[1] + d * ss[2] + r * ss[3]];
+  }
+  for (int i = tid; i < na * nu * ta; i += kThreads) {
+    const int a_ = i % ta, q = i / ta, u = q % nu, a = q / nu;
+    Tt[i] = A0 + a_ < m.nA ? tp[a * stt[0] + u * stt[1] + (A0 + a_) * stt[2]]
+                           : zero;
+  }
+  const int n_out = ta * nr * nC;
+  V acc[kCxOut];
+#pragma unroll
+  for (int k = 0; k < kCxOut; ++k) acc[k] = zero;
+
+  for (int c0 = 0; c0 < m.nc; c0 += kc) {
+    const int cv = m.nc - c0;
+    __syncthreads();   // the previous chunk's E, B and X2 are consumed
+    for (int i = tid; i < na * nl * kc; i += kThreads) {
+      const int c = i % kc, q = i / kc, l = q % nl, a = q / nl;
+      E[i] = c < cv ? e[a * se[0] + l * se[1] + (c0 + c) * se[2]] : zero;
+    }
+    for (int i = tid; i < kc * nd * nC; i += kThreads) {
+      const int C = i % nC, q = i / nC, d = q % nd, c = q / nd;
+      B[i] = c < cv ? b[(c0 + c) * sb[0] + d * sb[1] + C * sb[2]] : zero;
+    }
+    __syncthreads();
+    for (int i = tid; i < nu * nl * kc * ta; i += kThreads) {   // step 1
+      const int a_ = i % ta, q = i / ta, c = q % kc, q2 = q / kc;
+      const int l = q2 % nl, u = q2 / nl;
+      const V* pe = E + l * kc + c;
+      const V* pt = Tt + u * ta + a_;
+      V s = zero;
+      for (int a = 0; a < na; ++a)
+        s = cx_fma(pe[a * nl * kc], pt[a * nu * ta], s);
+      X1[i] = s;
+    }
+    __syncthreads();
+    for (int i = tid; i < kc * nd * nr * ta; i += kThreads) {   // step 2
+      const int a_ = i % ta, q = i / ta, r = q % nr, q2 = q / nr;
+      const int d = q2 % nd, c = q2 / nd;
+      const V* px = X1 + c * ta + a_;
+      const V* ps = S + d * nr + r;
+      V s = zero;
+      for (int ul = 0; ul < nu * nl; ++ul)
+        s = cx_fma(px[ul * kc * ta], ps[ul * nd * nr], s);
+      X2[i] = s;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kCxOut; ++k) {                          // step 3
+      const int o = tid + k * kThreads;
+      if (o < n_out) {
+        const int C = o % nC, q = o / nC, r = q % nr, a_ = q / nr;
+        const V* px = X2 + r * ta + a_;
+        const V* pb = B + C;
+        V s = acc[k];
+        for (int cd = 0; cd < kc * nd; ++cd)
+          s = cx_fma(px[cd * nr * ta], pb[cd * nC], s);
+        acc[k] = s;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kCxOut; ++k) {   // out[item, A0 + A', r, C]
+    const int o = tid + k * kThreads;
+    if (o < n_out) {
+      const int C = o % nC, q = o / nC, r = q % nr, a_ = q / nr;
+      if (A0 + a_ < m.nA)
+        out[((item * m.nA + A0 + a_) * nr + r) * nC + C] = acc[k];
+    }
+  }
+}
+
+// meta: the real layout (kMetaLen values), then the plan: ta, kc and the
+// shared bytes the Python plan computed for them.
+template <typename R>
+int launch_cx(const void* env, const void* top, const void* site,
+              const void* bot, void* out, const int64_t* meta,
+              cudaStream_t stream) {
+  using V = typename CxOf<R>::type;
+  const Meta m = unpack(meta);
+  if (batch_items(m) == 0 || m.nA == 0 || m.nr == 0 || m.nC == 0)
+    return static_cast<int>(cudaSuccess);
+  CxPlan p;
+  const int64_t* plan = meta + kMetaLen;
+  if (plan[0] < 1 || plan[1] < 1 || plan[0] > m.nA || plan[1] > m.nc ||
+      !cx_layout(m, static_cast<int>(plan[0]), static_cast<int>(plan[1]),
+                 sizeof(V), p) ||
+      p.smem != plan[2])
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t ctas = batch_items(m) * cdiv(m.nA, p.ta);
+  if (ctas >= (int64_t(1) << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  static bool attr_set[kMaxDevices] = {};
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(col_transfer_cx_kernel<V>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmemLimit));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set[dev] = true;
+  }
+  col_transfer_cx_kernel<V><<<static_cast<unsigned>(ctas), kThreads,
+                              static_cast<size_t>(p.smem), stream>>>(
+      static_cast<const V*>(env), static_cast<const V*>(top),
+      static_cast<const V*>(site), static_cast<const V*>(bot),
+      static_cast<V*>(out), m, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -664,6 +878,21 @@ int col_transfer_f64(const double* env, const double* top,
                      const int64_t* meta, void* stream) {
   return launch<double>(env, top, site, bot, out, meta,
                         static_cast<cudaStream_t>(stream));
+}
+
+// complex64 / complex128 (the complex body; meta as above plus its plan)
+int col_transfer_c64(const void* env, const void* top, const void* site,
+                     const void* bot, void* out, const int64_t* meta,
+                     void* stream) {
+  return launch_cx<float>(env, top, site, bot, out, meta,
+                          static_cast<cudaStream_t>(stream));
+}
+
+int col_transfer_c128(const void* env, const void* top, const void* site,
+                      const void* bot, void* out, const int64_t* meta,
+                      void* stream) {
+  return launch_cx<double>(env, top, site, bot, out, meta,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // The plan a call with this meta takes on the current device: plan[0..6] =

@@ -78,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "complex_ops.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -952,6 +954,269 @@ int attributes(int64_t smem, int64_t* out) {
   return 0;
 }
 
+// ------------------------------------------------------ complex bodies --
+//
+// complex64 / complex128: the same transfer with no conjugate anywhere
+// (pair_transfer_plain's four einsums). A separate, simple body; the real
+// bodies above are untouched. What bounds it: operations, 4 real FMAs per
+// complex multiply-add (805 MFLOP an item at chi = 32, D = 8), on the FP32
+// CUDA cores for complex64 and the FP64 ones for complex128 (no tensor
+// cores take complex here; complex128 on DMMA is later work). Design: one
+// CTA owns an (item, tile of ta values of A) and walks c in chunks of kc
+// values. row1, row2 and the top tile are copied into shared memory once,
+// env and bot per chunk, each with the operand's own strides (the right
+// form's views and stride-0 broadcasts alike), zero-filled past the last c
+// or A. Per chunk the four products run as one loop nest each, every
+// operand in shared memory, each thread walking its outputs by the block
+// stride:
+//   step 1  X1[u][m][n][c'][A'] = sum_a  E[a][m][n][c'] Tt[a][u][A']
+//   step 2  X2[d][n][c'][A'][r] = sum_um X1 R1[u][m][d][r]
+//   step 3  X3[c'][e][A'][r][f] = sum_dn X2 R2[d][n][e][f]   (over X1)
+//   step 4  acc[A'][r][f][C]   += sum_c'e X3 B[c'][e][C]
+// The output tile stays in registers (at most kCxOut values a thread). ta
+// and kc come from kernels/pair_transfer.py:pair_transfer_plan, after the
+// sizes in the meta; cx_layout here recomputes the layout and refuses a
+// plan that does not match it or does not fit.
+// The launch bounds name one CTA an SM as the floor: without it ptxas kept
+// these bodies to 48-64 registers and spilled (89-114 registers, no spill,
+// with it).
+
+constexpr int kCxOut = 8;   // output values a thread keeps in registers
+
+struct CxPlan {
+  int ta, kc;
+  int64_t oR1, oR2, oT, oE, oB, oX1, oX2, oX3;   // region offsets (elements)
+  int64_t smem;                                  // bytes
+};
+
+bool cx_layout(const Meta& m, int ta, int kc, int elem, CxPlan& p) {
+  p.ta = ta;
+  p.kc = kc;
+  const int64_t x1 = int64_t(m.nu) * m.nm * m.nn * kc * ta;
+  const int64_t x3 = int64_t(kc) * m.ne * ta * m.nr * m.nf;
+  int64_t off = 0;
+  p.oR1 = off;
+  off += int64_t(m.nu) * m.nm * m.nd * m.nr;
+  p.oR2 = off;
+  off += int64_t(m.nd) * m.nn * m.ne * m.nf;
+  p.oT = off;
+  off += int64_t(m.na) * m.nu * ta;
+  p.oE = off;
+  off += int64_t(m.na) * m.nm * m.nn * kc;
+  p.oB = off;
+  off += int64_t(kc) * m.ne * m.nC;
+  p.oX1 = p.oX3 = off;   // X3 is written once step 2 has read X1
+  off += x1 > x3 ? x1 : x3;
+  p.oX2 = off;
+  off += int64_t(m.nd) * m.nn * kc * ta * m.nr;
+  p.smem = off * elem;
+  return ta >= 1 && kc >= 1 && ta <= m.nA && kc <= m.nc &&
+         p.smem <= kSmemLimit &&
+         int64_t(ta) * m.nr * m.nf * m.nC <= int64_t(kCxOut) * kThreads;
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads, 1)
+pair_transfer_cx_kernel(const V* __restrict__ env, const V* __restrict__ top,
+                        const V* __restrict__ row1, const V* __restrict__ row2,
+                        const V* __restrict__ bot, V* __restrict__ out,
+                        const Meta m, const CxPlan p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  V* const sm = reinterpret_cast<V*>(smem_raw);
+  V* const R1 = sm + p.oR1;
+  V* const R2 = sm + p.oR2;
+  V* const Tt = sm + p.oT;
+  V* const E = sm + p.oE;
+  V* const B = sm + p.oB;
+  V* const X1 = sm + p.oX1;
+  V* const X2 = sm + p.oX2;
+  V* const X3 = sm + p.oX3;
+  const int tid = threadIdx.x;
+  const int ta = p.ta, kc = p.kc;
+  const int na = m.na, nm = m.nm, nn = m.nn, nu = m.nu, nd = m.nd;
+  const int nr = m.nr, ne = m.ne, nf = m.nf, nC = m.nC;
+  const int n_tiles = cdiv(m.nA, ta);
+  const int64_t item = blockIdx.x / n_tiles;
+  const int A0 = static_cast<int>(blockIdx.x % n_tiles) * ta;
+  int64_t rem = item;
+  int64_t off_e = 0, off_t = 0, off_1 = 0, off_2 = 0, off_b = 0;
+  for (int k = kMaxBatch - 1; k >= 0; --k) {
+    const int64_t i = rem % m.nb[k];
+    rem /= m.nb[k];
+    off_e += i * m.se[k];
+    off_t += i * m.st[k];
+    off_1 += i * m.s1[k];
+    off_2 += i * m.s2[k];
+    off_b += i * m.sb[k];
+  }
+  const V* const e = env + off_e;
+  const V* const tp = top + off_t;
+  const V* const r1 = row1 + off_1;
+  const V* const r2 = row2 + off_2;
+  const V* const b = bot + off_b;
+  const int64_t* se = m.se + kMaxBatch;   // a, m, n, c
+  const int64_t* st = m.st + kMaxBatch;   // a, u, A
+  const int64_t* s1 = m.s1 + kMaxBatch;   // u, m, d, r
+  const int64_t* s2 = m.s2 + kMaxBatch;   // d, n, e, f
+  const int64_t* sb = m.sb + kMaxBatch;   // c, e, C
+  const V zero = cx_zero<V>();
+
+  for (int i = tid; i < nu * nm * nd * nr; i += kThreads) {
+    const int r = i % nr, q = i / nr, d = q % nd, q2 = q / nd;
+    const int mm = q2 % nm, u = q2 / nm;
+    R1[i] = r1[u * s1[0] + mm * s1[1] + d * s1[2] + r * s1[3]];
+  }
+  for (int i = tid; i < nd * nn * ne * nf; i += kThreads) {
+    const int f = i % nf, q = i / nf, ee = q % ne, q2 = q / ne;
+    const int n = q2 % nn, d = q2 / nn;
+    R2[i] = r2[d * s2[0] + n * s2[1] + ee * s2[2] + f * s2[3]];
+  }
+  for (int i = tid; i < na * nu * ta; i += kThreads) {
+    const int a_ = i % ta, q = i / ta, u = q % nu, a = q / nu;
+    Tt[i] = A0 + a_ < m.nA ? tp[a * st[0] + u * st[1] + (A0 + a_) * st[2]]
+                           : zero;
+  }
+  const int n_out = ta * nr * nf * nC;
+  V acc[kCxOut];
+#pragma unroll
+  for (int k = 0; k < kCxOut; ++k) acc[k] = zero;
+
+  for (int c0 = 0; c0 < m.nc; c0 += kc) {
+    const int cv = m.nc - c0;
+    __syncthreads();   // the previous chunk's E, B and X3 are consumed
+    for (int i = tid; i < na * nm * nn * kc; i += kThreads) {
+      const int c = i % kc, q = i / kc, n = q % nn, q2 = q / nn;
+      const int mm = q2 % nm, a = q2 / nm;
+      E[i] = c < cv ? e[a * se[0] + mm * se[1] + n * se[2] + (c0 + c) * se[3]]
+                    : zero;
+    }
+    for (int i = tid; i < kc * ne * nC; i += kThreads) {
+      const int C = i % nC, q = i / nC, ee = q % ne, c = q / ne;
+      B[i] = c < cv ? b[(c0 + c) * sb[0] + ee * sb[1] + C * sb[2]] : zero;
+    }
+    __syncthreads();
+    for (int i = tid; i < nu * nm * nn * kc * ta; i += kThreads) {   // 1
+      const int a_ = i % ta, q = i / ta, c = q % kc, q2 = q / kc;
+      const int n = q2 % nn, q3 = q2 / nn, mm = q3 % nm, u = q3 / nm;
+      const V* pe = E + (mm * nn + n) * kc + c;
+      const V* pt = Tt + u * ta + a_;
+      V s = zero;
+      for (int a = 0; a < na; ++a)
+        s = cx_fma(pe[a * nm * nn * kc], pt[a * nu * ta], s);
+      X1[i] = s;
+    }
+    __syncthreads();
+    for (int i = tid; i < nd * nn * kc * ta * nr; i += kThreads) {   // 2
+      const int r = i % nr, q = i / nr, a_ = q % ta, q2 = q / ta;
+      const int c = q2 % kc, q3 = q2 / kc, n = q3 % nn, d = q3 / nn;
+      const V* px = X1 + (n * kc + c) * ta + a_;
+      const V* pr = R1 + d * nr + r;
+      V s = zero;
+      for (int um = 0; um < nu * nm; ++um)
+        s = cx_fma(px[um * nn * kc * ta], pr[um * nd * nr], s);
+      X2[i] = s;
+    }
+    __syncthreads();
+    for (int i = tid; i < kc * ne * ta * nr * nf; i += kThreads) {   // 3
+      const int f = i % nf, q = i / nf, r = q % nr, q2 = q / nr;
+      const int a_ = q2 % ta, q3 = q2 / ta, ee = q3 % ne, c = q3 / ne;
+      const V* px = X2 + (c * ta + a_) * nr + r;
+      const V* pr = R2 + ee * nf + f;
+      V s = zero;
+      for (int dn = 0; dn < nd * nn; ++dn)
+        s = cx_fma(px[dn * kc * ta * nr], pr[dn * ne * nf], s);
+      X3[i] = s;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kCxOut; ++k) {                                // 4
+      const int o = tid + k * kThreads;
+      if (o < n_out) {
+        const int C = o % nC, q = o / nC;   // q = (A' nr + r) nf + f
+        const V* px = X3 + q;
+        const V* pb = B + C;
+        V s = acc[k];
+        for (int ce = 0; ce < kc * ne; ++ce)
+          s = cx_fma(px[ce * ta * nr * nf], pb[ce * nC], s);
+        acc[k] = s;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kCxOut; ++k) {   // out[item, A0 + A', r, f, C]
+    const int o = tid + k * kThreads;
+    if (o < n_out) {
+      const int a_ = o / (nr * nf * nC);
+      if (A0 + a_ < m.nA)
+        out[(item * m.nA + A0) * nr * nf * nC + o] = acc[k];
+    }
+  }
+}
+
+// meta: sizes and strides (kMetaInts values), then the plan: ta, kc and
+// the shared bytes the Python plan computed for them.
+template <typename R>
+int launch_cx(const void* env, const void* top, const void* row1,
+              const void* row2, const void* bot, void* out,
+              const int64_t* meta, cudaStream_t stream) {
+  using V = typename CxOf<R>::type;
+  const Meta m = unpack(meta);
+  if (batch_items(m) == 0 || m.nA == 0 || m.nr == 0 || m.nf == 0 ||
+      m.nC == 0)
+    return static_cast<int>(cudaSuccess);
+  const int64_t* plan = meta + kMetaInts;
+  CxPlan p;
+  if (plan[0] < 1 || plan[1] < 1 || plan[0] > m.nA || plan[1] > m.nc ||
+      !cx_layout(m, static_cast<int>(plan[0]), static_cast<int>(plan[1]),
+                 sizeof(V), p) ||
+      p.smem != plan[2])
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t ctas = batch_items(m) * cdiv(m.nA, p.ta);
+  if (ctas >= (int64_t(1) << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  static bool done[kMaxDevices] = {};
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(pair_transfer_cx_kernel<V>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmemLimit));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    done[dev] = true;
+  }
+  pair_transfer_cx_kernel<V><<<static_cast<unsigned>(ctas), kThreads,
+                               static_cast<size_t>(p.smem), stream>>>(
+      static_cast<const V*>(env), static_cast<const V*>(top),
+      static_cast<const V*>(row1), static_cast<const V*>(row2),
+      static_cast<const V*>(bot), static_cast<V*>(out), m, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What the compiled complex body reaches at a plan's shared bytes (as
+// attributes() for the real ones).
+template <typename R>
+int cx_attributes(int64_t smem, int64_t* out) {
+  using V = typename CxOf<R>::type;
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_transfer_cx_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemLimit));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, pair_transfer_cx_kernel<V>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, pair_transfer_cx_kernel<V>, kThreads, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int64_t>(attr.localSizeBytes);
+  out[2] = ctas;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -971,12 +1236,34 @@ int pair_transfer_f64(const double* env, const double* top,
                         static_cast<cudaStream_t>(stream));
 }
 
+// complex64 / complex128 (the complex body; meta as above plus its plan)
+int pair_transfer_c64(const void* env, const void* top, const void* row1,
+                      const void* row2, const void* bot, void* out,
+                      const int64_t* meta, void* stream) {
+  return launch_cx<float>(env, top, row1, row2, bot, out, meta,
+                          static_cast<cudaStream_t>(stream));
+}
+
+int pair_transfer_c128(const void* env, const void* top, const void* row1,
+                       const void* row2, const void* bot, void* out,
+                       const int64_t* meta, void* stream) {
+  return launch_cx<double>(env, top, row1, row2, bot, out, meta,
+                           static_cast<cudaStream_t>(stream));
+}
+
 // The compiled kernel of one dtype at a plan's shared bytes: out[0..2] =
 // registers a thread, local (spill) bytes a thread, CTAs an SM holds.
 int pair_transfer_attributes(int elem_bytes, int64_t smem_bytes,
                              int64_t* out) {
   return elem_bytes == 8 ? attributes<double>(smem_bytes, out)
                          : attributes<float>(smem_bytes, out);
+}
+
+// The same for the complex body: elem_bytes 8 (complex64) or 16.
+int pair_transfer_cx_attributes(int elem_bytes, int64_t smem_bytes,
+                                int64_t* out) {
+  return elem_bytes == 16 ? cx_attributes<double>(smem_bytes, out)
+                          : cx_attributes<float>(smem_bytes, out);
 }
 
 }  // extern "C"

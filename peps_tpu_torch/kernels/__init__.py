@@ -4,5 +4,6 @@ K1 ``col_transfer`` (CUDA C++, ``csrc/col_transfer.cu``): the BTen column
 transfer. K2 ``centered_o`` (CUDA C++, ``csrc/centered_o.cu``): the
 centered SR sample matrix. K3 ``pair_transfer`` (CUDA C++,
 ``csrc/pair_transfer.cu``): the two-row (BTen2) column transfer of the
-pair passes.
+pair passes. Each takes float32 and float64 (real bodies) and complex64
+and complex128 (a separate complex body in the same source).
 """

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under ``peps_tpu_torch/csrc/*.cu`` have a plain C interface.
+The sources under ``peps_tpu_torch/csrc/*.cu`` (and the header they share,
+``complex_ops.cuh``) have a plain C interface.
 ``nvcc`` compiles them for Hopper (``sm_90a``), one process per source, all
 started together, and links them into one shared library, on first use,
 under ``build/peps_tpu_torch/`` at the root of the checkout; ``ctypes``
-loads it. The library's file name carries a hash of the sources, so an
-edited source is rebuilt and a stale library is never loaded.
+loads it. The library's file name carries a hash of the sources and
+headers, so an edited file is rebuilt and a stale library is never loaded.
 """
 from __future__ import annotations
 
@@ -45,11 +46,13 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr = ctypes.c_void_p
-    for name in ("col_transfer_f32", "col_transfer_f64"):
+    for name in ("col_transfer_f32", "col_transfer_f64", "col_transfer_c64",
+                 "col_transfer_c128"):
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
-    for name in ("pair_transfer_f32", "pair_transfer_f64"):
+    for name in ("pair_transfer_f32", "pair_transfer_f64",
+                 "pair_transfer_c64", "pair_transfer_c128"):
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
@@ -58,7 +61,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pair_transfer_attributes.argtypes = [ctypes.c_int, ctypes.c_int64,
                                              ptr]
     lib.pair_transfer_attributes.restype = ctypes.c_int
-    for name in ("centered_o_f32", "centered_o_f64"):
+    lib.pair_transfer_cx_attributes.argtypes = [ctypes.c_int, ctypes.c_int64,
+                                                ptr]
+    lib.pair_transfer_cx_attributes.restype = ctypes.c_int
+    for name in ("centered_o_f32", "centered_o_f64", "centered_o_c64",
+                 "centered_o_c128"):
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
@@ -72,7 +79,7 @@ def cuda_library() -> BuiltLibrary:
     missing or the build fails; never falls back."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha1()
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):     # the sources and headers
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

@@ -16,8 +16,10 @@ d values of p, reads each holes value once into registers, and writes the
 d outputs from there. :func:`centered_o_plan` is its launch plan, in
 Python so that the CPU tests can check it.
 
-On a CPU tensor :func:`centered_o` runs the plain version; on a CUDA tensor
-it launches the kernel or raises.
+complex64 and complex128 take a separate, simple complex body in the same
+source (no conjugate: O as above, the SR solve conjugates later), planned
+by the same function. On a CPU tensor :func:`centered_o` runs the plain
+version; on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -30,6 +32,11 @@ LANES_PER_ROW = 8                      # 8 lanes x 16 bytes: a 128-byte line
 ROWS_PER_PASS = THREADS // LANES_PER_ROW
 MAX_ROWS_PER_THREAD = 8                # a row block holds 256 rows
 MAX_D = 4                              # spin-1/2 2, t-J 3, Hubbard 4
+ENTRIES = {torch.float32: "centered_o_f32", torch.float64: "centered_o_f64",
+           torch.complex64: "centered_o_c64",
+           torch.complex128: "centered_o_c128"}
+COMPLEX = (torch.complex64, torch.complex128)
+CX_COLS = 32                           # the complex body: 32 columns a CTA
 
 
 def centered_o_plain(holes, psi, cfg, d):
@@ -53,16 +60,17 @@ def centered_o_plan(ns, s, k, d, dtype):
     block re-reads all but the last in the write pass). ``smem_bytes`` is
     the CTA's static shared memory, ``tile_bytes`` its register tile,
     ``ctas_per_sm`` the CTAs an SM holds at least (the kernel's launch
-    bounds); offsets are 64-bit whatever the size."""
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the CUDA centered_o takes float32/float64, got "
-                        f"{dtype} (complex support comes with fermions)")
+    bounds); offsets are 64-bit whatever the size. A complex dtype takes
+    the complex body's plan (:func:`_complex_plan`)."""
+    entry_name(dtype)
     if not 1 <= d <= MAX_D:
         raise ValueError(f"the CUDA centered_o takes 1 <= d <= {MAX_D}, "
                          f"got d = {d}")
     if min(ns, s, k) < 1:
         raise ValueError(f"centered_o plan of an empty buffer: "
                          f"{(ns, s, k)}")
+    if dtype in COMPLEX:
+        return _complex_plan(ns, s, k, d, dtype)
     item = torch.finfo(dtype).bits // 8
     vec = 16 // item
     kc = LANES_PER_ROW * vec
@@ -82,6 +90,33 @@ def centered_o_plan(ns, s, k, d, dtype):
             "smem_bytes": smem, "tile_bytes": block_rows * kc * item,
             "ctas_per_sm": 4 if r <= 2 else 3 if r == 4 else 2,
             "out_elements": ns * s * d * k, "offset_bits": 64}
+
+
+def _complex_plan(ns, s, k, d, dtype):
+    """The complex body's plan: one CTA of 256 threads per (site, chunk of
+    32 columns of K), the warps striding over the Ns rows twice (sums,
+    then the write); shared memory holds the warps' partial sums of the
+    ``dp`` >= d states (8 or 16 bytes a value)."""
+    item = 8 if dtype == torch.complex64 else 16
+    chunks = -(-k // CX_COLS)
+    ctas = s * chunks
+    if ctas >= 2 ** 31:
+        raise ValueError(f"centered_o grid of {ctas} CTAs exceeds 2^31 - 1")
+    dp = 2 if d <= 2 else 4
+    return {"body": "simt_complex", "threads": THREADS,
+            "cols_per_cta": CX_COLS, "col_chunks": chunks, "ctas": ctas,
+            "dp": dp, "smem_bytes": (THREADS // 32) * dp * CX_COLS * item,
+            "row_passes": 2, "out_elements": ns * s * d * k,
+            "offset_bits": 64}
+
+
+def entry_name(dtype) -> str:
+    """The kernel library's C entry for holes of ``dtype``; TypeError for a
+    dtype the kernel does not take."""
+    if dtype not in ENTRIES:
+        raise TypeError(f"the CUDA centered_o takes {list(ENTRIES)}, got "
+                        f"{dtype}")
+    return ENTRIES[dtype]
 
 
 def _check_operands(holes, psi, cfg):
@@ -124,13 +159,16 @@ def centered_o(holes, psi, cfg, d):
     holes, psi, cfg = holes.contiguous(), psi.contiguous(), \
         cfg.to(torch.int64).contiguous()
     out = torch.empty(ns, s * d * k, dtype=holes.dtype, device=holes.device)
-    vec = (k % plan["vec"] == 0 and holes.data_ptr() % 16 == 0
-           and out.data_ptr() % 16 == 0)
-    args = (ctypes.c_int64 * 9)(ns, s, k, d, plan["col_chunks"],
-                                plan["rows_per_thread"], plan["row_blocks"],
-                                plan["dp"], int(vec))
-    fn = lib.centered_o_f32 if holes.dtype == torch.float32 \
-        else lib.centered_o_f64
+    if holes.dtype in COMPLEX:
+        args = (ctypes.c_int64 * 6)(ns, s, k, d, plan["col_chunks"],
+                                    plan["dp"])
+    else:
+        vec = (k % plan["vec"] == 0 and holes.data_ptr() % 16 == 0
+               and out.data_ptr() % 16 == 0)
+        args = (ctypes.c_int64 * 9)(ns, s, k, d, plan["col_chunks"],
+                                    plan["rows_per_thread"],
+                                    plan["row_blocks"], plan["dp"], int(vec))
+    fn = getattr(lib, entry_name(holes.dtype))
     with torch.cuda.device(holes.device):
         check(fn(holes.data_ptr(), psi.data_ptr(), cfg.data_ptr(),
                  out.data_ptr(), args,

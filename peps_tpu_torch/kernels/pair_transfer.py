@@ -14,8 +14,9 @@ merging); a broadcast operand is read with batch stride 0, never copied.
 
 On a CPU tensor :func:`pair_transfer` runs the plain version. On a CUDA
 tensor it launches the hand-written kernel (``csrc/pair_transfer.cu``: f64
-on the DMMA tensor cores, f32 on the FP32 CUDA cores at two CTAs an SM) or
-raises; there is no fallback. :func:`pair_transfer_plan` is the kernel's
+on the DMMA tensor cores, f32 on the FP32 CUDA cores at two CTAs an SM,
+complex64 and complex128 on a separate, simple complex body) or raises;
+there is no fallback. :func:`pair_transfer_plan` is the kernel's
 launch plan, in Python so that the CPU tests can check it; the kernel
 checks the plan it is given and refuses one it cannot run. The launch meta
 (sizes, strides and plan) is cached per operand signature
@@ -28,7 +29,9 @@ import math
 
 import torch
 
-from peps_tpu_torch.kernels.col_transfer import MAX_BATCH, _merge_batch
+from peps_tpu_torch.kernels.col_transfer import (COMPLEX, CX_OUT_PER_THREAD,
+                                                MAX_BATCH, _merge_batch,
+                                                shrink_to_fit)
 
 # trailing (non-batch) dims of env, top, row1, row2, bot
 _NDIMS = (4, 3, 4, 4, 3)
@@ -42,6 +45,12 @@ SMEM_PER_SM = 233472               # 228 KB an SM holds
 SMEM_RESERVED_PER_CTA = 1024       # the runtime's share of each CTA
 SMEM_TWO_CTAS = SMEM_PER_SM // 2 - SMEM_RESERVED_PER_CTA
 A_TILE, C_CHUNK = 4, 2             # the largest tiles the plan takes
+ENTRIES = {torch.float32: "pair_transfer_f32",
+           torch.float64: "pair_transfer_f64",
+           torch.complex64: "pair_transfer_c64",
+           torch.complex128: "pair_transfer_c128"}
+# the complex body's plan fields, in the order it reads them after the meta
+CX_PLAN_KEYS = ("ta", "kc", "smem_bytes")
 META_INTS = MAX_BATCH + 3 * (MAX_BATCH + 4) + 2 * (MAX_BATCH + 3) + 11
 # the kernel's plan fields, in the order it reads them after the meta
 PLAN_KEYS = ("ta", "kc", "kl", "zn", "sw", "ldE", "ldT", "ldR1", "ldR2",
@@ -163,14 +172,15 @@ def pair_transfer_plan(dims, dtype, items=1):
     kernel does not take, ValueError for empty sizes and RuntimeError when
     no plan fits shared memory. ``smem_ctas_per_sm`` is what shared memory
     allows (the card-side diagnostic reports what the compiled kernel
-    reaches)."""
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the CUDA pair_transfer takes float32/float64, got "
-                        f"{dtype} (complex support comes with fermions)")
+    reaches). A complex dtype takes the complex body's plan
+    (:func:`_complex_plan`)."""
+    entry_name(dtype)
     dims = tuple(int(x) for x in dims)
     if len(dims) != len(DIM_NAMES) or min(dims) < 1:
         raise ValueError(f"pair_transfer plan of sizes {dims}: needs "
                          f"{len(DIM_NAMES)} sizes >= 1 {DIM_NAMES}")
+    if dtype in COMPLEX:
+        return _complex_plan(dims, dtype, items)
     mma = dtype == torch.float64
     na, nm, nn, nc, nu, nA, nd, nr, ne, nf, nC = dims
     budgets = (SMEM_PER_BLOCK,) if mma else (SMEM_TWO_CTAS, SMEM_PER_BLOCK)
@@ -192,6 +202,59 @@ def pair_transfer_plan(dims, dtype, items=1):
     raise RuntimeError(f"no pair_transfer plan fits {dtype} sizes "
                        f"{dict(zip(DIM_NAMES, dims))} in "
                        f"{SMEM_PER_BLOCK} bytes of shared memory")
+
+
+def entry_name(dtype) -> str:
+    """The kernel library's C entry for operands of ``dtype``; TypeError
+    for a dtype the kernel does not take."""
+    if dtype not in ENTRIES:
+        raise TypeError(f"the CUDA pair_transfer takes {list(ENTRIES)}, got "
+                        f"{dtype}")
+    return ENTRIES[dtype]
+
+
+def complex_smem_bytes(dims, ta, kc, item):
+    """Shared bytes of the complex body at A tile ta and c chunk kc: row1,
+    row2, the top tile, env and bot chunks, then the intermediates (step
+    3's over step 1's)."""
+    na, nm, nn, nc, nu, nA, nd, nr, ne, nf, nC = dims
+    x1 = nu * nm * nn * kc * ta
+    x3 = kc * ne * ta * nr * nf
+    return item * (nu * nm * nd * nr + nd * nn * ne * nf + na * nu * ta
+                   + na * nm * nn * kc + kc * ne * nC + max(x1, x3)
+                   + nd * nn * kc * ta * nr)
+
+
+def _complex_plan(dims, dtype, items):
+    """The complex body's plan: one CTA of 256 threads per (item, tile of
+    ``ta`` values of A), c in chunks of ``kc``; the largest tiles (ta <= 4,
+    kc <= 2) whose output tile fits the threads' registers (at most 8
+    values a thread) and whose shared memory fits 227 KB, with elements of
+    8 (complex64) or 16 bytes (complex128). RuntimeError when none fits."""
+    na, nm, nn, nc, nu, nA, nd, nr, ne, nf, nC = dims
+    item = 8 if dtype == torch.complex64 else 16
+    fit = shrink_to_fit(
+        min(nA, A_TILE), min(nc, C_CHUNK),
+        lambda ta: ta * nr * nf * nC <= CX_OUT_PER_THREAD * THREADS,
+        lambda ta, kc: complex_smem_bytes(dims, ta, kc, item))
+    if fit is None:
+        raise RuntimeError(
+            f"no pair_transfer plan fits {dtype} sizes "
+            f"{dict(zip(DIM_NAMES, dims))} in {SMEM_PER_BLOCK} bytes of "
+            f"shared memory and {CX_OUT_PER_THREAD} outputs a thread")
+    ta, kc, smem = fit
+    a_tiles = _cdiv(nA, ta)
+    ctas = items * a_tiles
+    if ctas >= 2 ** 31:
+        raise ValueError(f"pair_transfer grid of {ctas} CTAs exceeds "
+                         f"2^31 - 1")
+    return {"ta": ta, "kc": kc, "smem_bytes": smem, "dtype": dtype,
+            "dims": dims, "items": items,
+            "body": f"simt_complex_{'c64' if item == 8 else 'c128'}",
+            "a_tiles": a_tiles, "c_chunks": _cdiv(nc, kc), "ctas": ctas,
+            "outputs_per_thread": _cdiv(ta * nr * nf * nC, THREADS),
+            "smem_ctas_per_sm": min(SMEM_PER_SM // (
+                smem + SMEM_RESERVED_PER_CTA), 2048 // THREADS)}
 
 
 def _finish(lay, dims, dtype, items):
@@ -227,7 +290,8 @@ def _meta(ops, batch):
     items = math.prod(batch)
     if items * dims[5] * dims[7] * dims[9] * dims[10] > 0:
         plan = pair_transfer_plan(dims, ops[0].dtype, items)
-        meta += [plan[k] for k in PLAN_KEYS]
+        keys = CX_PLAN_KEYS if ops[0].dtype in COMPLEX else PLAN_KEYS
+        meta += [plan[k] for k in keys]
     return meta
 
 
@@ -246,9 +310,7 @@ def _check_operands(ops):
     if any(o.dtype != dt for o in ops):
         raise TypeError("pair_transfer operands must share one dtype, got "
                         f"{[o.dtype for o in ops]}")
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"the CUDA pair_transfer takes float32/float64, got "
-                        f"{dt} (complex support comes with fermions)")
+    entry_name(dt)
     if any(o.device != env.device for o in ops):
         raise ValueError("pair_transfer operands lie on different devices")
     if any(o.dim() < k for o, k in zip(ops, _NDIMS)):
@@ -298,9 +360,7 @@ def pair_transfer(env, top, row1, row2, bot):
                            f"{env.device}")
     from peps_tpu_torch.kernels._build import check, cuda_library
     batch, meta = launch_meta(env, top, row1, row2, bot)
-    lib = cuda_library().lib
-    fn = lib.pair_transfer_f32 if env.dtype == torch.float32 \
-        else lib.pair_transfer_f64
+    fn = getattr(cuda_library().lib, entry_name(env.dtype))
     out = torch.empty(*batch, top.shape[-1], row1.shape[-1], row2.shape[-1],
                       bot.shape[-1], dtype=env.dtype, device=env.device)
     if out.numel() == 0:
@@ -326,9 +386,11 @@ def pair_transfer_diagnostic(env, top, row1, row2, bot):
     plan = pair_transfer_plan(pair_dims(env, top, row1, row2, bot),
                               env.dtype, math.prod(batch))
     attrs = (ctypes.c_int64 * 3)()
+    lib = cuda_library().lib
+    read = lib.pair_transfer_cx_attributes if env.dtype in COMPLEX \
+        else lib.pair_transfer_attributes
     with torch.cuda.device(env.device):
-        check(cuda_library().lib.pair_transfer_attributes(
-            env.element_size(), plan["smem_bytes"], attrs))
+        check(read(env.element_size(), plan["smem_bytes"], attrs))
     keys = ("ta", "kc", "ctas", "smem_bytes", "body", "smem_ctas_per_sm")
     return {**{k: plan[k] for k in keys}, "regs_per_thread": attrs[0],
             "spill_bytes": attrs[1], "ctas_per_sm": attrs[2]}

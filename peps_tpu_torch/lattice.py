@@ -32,6 +32,36 @@ def boundary_mask(ly: int, lx: int, d: int, D: int,
     return mask
 
 
+def _open_only(bc: BoundaryCondition, what: str) -> None:
+    if bc != BoundaryCondition.OPEN:
+        raise NotImplementedError(f"{what} with periodic boundaries: ROADMAP "
+                                  "queue 1, item 11")
+
+
+def nn_bonds_h(ly: int, lx: int,
+               bc: BoundaryCondition = BoundaryCondition.OPEN) -> list:
+    """Horizontal nearest-neighbour bonds ((y, x), (y, x+1)), row by row."""
+    _open_only(bc, "nn_bonds_h")
+    return [((y, x), (y, x + 1)) for y in range(ly) for x in range(lx - 1)]
+
+
+def nn_bonds_v(ly: int, lx: int,
+               bc: BoundaryCondition = BoundaryCondition.OPEN) -> list:
+    """Vertical nearest-neighbour bonds ((y, x), (y+1, x)), row by row."""
+    _open_only(bc, "nn_bonds_v")
+    return [((y, x), (y + 1, x)) for y in range(ly - 1) for x in range(lx)]
+
+
+def transpose_lattice(tn: torch.Tensor) -> torch.Tensor:
+    """Reflect a projected network [.., Ly, Lx, u, l, d, r] across the
+    diagonal: [.., Lx, Ly, l, u, r, d], so vertical structures become
+    horizontal. Returns a view."""
+    nd = tn.ndim
+    perm = list(range(nd - 6)) + [nd - 5, nd - 6, nd - 3, nd - 4, nd - 1,
+                                  nd - 2]
+    return tn.permute(perm)
+
+
 def transpose_tps(tps: torch.Tensor) -> torch.Tensor:
     """Reflect a TPS [.., Ly, Lx, p, u, l, d, r] across the diagonal:
     [.., Lx, Ly, p, l, u, r, d], so vertical bonds become horizontal.

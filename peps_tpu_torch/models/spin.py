@@ -37,6 +37,18 @@ def heisenberg_bond(j: float = 1.0) -> np.ndarray:
     return j * xxz_bond(1.0, 1.0)
 
 
+def ising_zz_bond(j: float = 1.0) -> np.ndarray:
+    """-j sigma^z sigma^z with Pauli operators (sigma = 2S), the TFIM's
+    bond."""
+    sz = np.diag([1.0, -1.0])
+    return -j * two_site(sz, sz)
+
+
+def transverse_field_site(h: float) -> np.ndarray:
+    """-h sigma^x, the TFIM's one-site term."""
+    return -h * np.array([[0.0, 1.0], [1.0, 0.0]])
+
+
 @dataclasses.dataclass(frozen=True)
 class SquareLatticeModel:
     """Generic square-lattice two-body model (bosonic); fields as in the
@@ -103,3 +115,12 @@ def triangle_j1j2_nnn(j1: float, j2: float) -> SquareLatticeModel:
     h2 = heisenberg_bond(j2)
     return SquareLatticeModel(2, h1, h1, h_d=h1, h_ad=h2,
                               name="triangle_j1j2_nnn")
+
+
+def transverse_field_ising(j: float = 1.0, h: float = 1.0) -> SquareLatticeModel:
+    """H = -j sum_<ij> sigma^z_i sigma^z_j - h sum_i sigma^x_i; Sz is not
+    conserved, so it samples with a rule that flips single spins (the
+    Suwa-Todo update of a bond)."""
+    hb = ising_zz_bond(j)
+    return SquareLatticeModel(2, hb, hb, h_site=transverse_field_site(h),
+                              name="tfim")

@@ -1,14 +1,28 @@
-"""Chain-batched sampling helpers (port of the main-path part of
+"""Chain-batched sampling state and helpers (port of
 ``peps_tpu/montecarlo/engine.py``): configurations [nc, Ly, Lx] int64 on the
-device, the chain axis leading."""
+device, the chain axis leading. The reference's jax.random key becomes a
+``torch.Generator`` (or a source of each sweep's uniforms, as the parity
+tests replay the reference's)."""
 from __future__ import annotations
 
+import dataclasses
+import os
+from typing import Callable, NamedTuple
+
+import numpy as np
 import torch
 
 from peps_tpu_torch.contraction import bmps
 from peps_tpu_torch.device import resolve_device
+from peps_tpu_torch.lattice import transpose_tps
 from peps_tpu_torch.linalg import TruncParams
+from peps_tpu_torch.montecarlo.sweep import SweepStats, UpdateRule, mc_sweep
 from peps_tpu_torch.tps import project
+
+
+class ChainState(NamedTuple):
+    configs: torch.Tensor                     # [nc, Ly, Lx] int64
+    generator: torch.Generator | None = None  # draws each sweep's uniforms
 
 
 def init_configs_occupancy(generator: torch.Generator, nchains: int, ly: int,
@@ -61,3 +75,56 @@ def normalize_state_order1(tps, configs, chi: int, trunc: TruncParams):
     log_abs = torch.log(torch.clamp(mant.abs(), min=1e-300)) + logw
     n_sites = tps.shape[0] * tps.shape[1]
     return tps * torch.exp(-log_abs.max() / n_sites)
+
+
+@dataclasses.dataclass
+class MonteCarloEngine:
+    """Host-side owner of the chain batch and its sweep (the reference's
+    MonteCarloEngine). Each sweep's uniforms come from ``uniform_source()``
+    when it is set, else from ``state.generator``."""
+    tps: torch.Tensor
+    chi: int
+    trunc: TruncParams
+    rule: UpdateRule
+    state: ChainState
+    uniform_source: Callable[[], tuple] | None = None
+
+    def __post_init__(self):
+        self._tps_t = transpose_tps(self.tps)
+
+    def step_sweep(self) -> SweepStats:
+        """One sweep of every chain; returns the summed SweepStats."""
+        uniforms = self.uniform_source() if self.uniform_source else None
+        configs, stats = mc_sweep(self.tps, self._tps_t, self.state.configs,
+                                  self.chi, self.trunc, uniforms=uniforms,
+                                  generator=self.state.generator,
+                                  rule=self.rule)
+        self.state = self.state._replace(configs=configs)
+        return stats
+
+    def warm_up(self, n_sweeps: int) -> float:
+        """n_sweeps sweeps; returns their acceptance rate."""
+        acc = tri = 0
+        for _ in range(n_sweeps):
+            st = self.step_sweep()
+            acc += int(st.accepted)
+            tri += int(st.trials)
+        return acc / max(tri, 1)
+
+
+def _npy(path: str) -> str:
+    return path if path.endswith(".npy") else path + ".npy"
+
+
+def save_configs(path: str, configs: torch.Tensor) -> None:
+    """Dump the chain configurations for a warm restart, as the reference
+    writes them: one int32 .npy file (".npy" appended where missing)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.save(_npy(path), configs.detach().cpu().numpy().astype(np.int32))
+
+
+def load_configs(path: str, device=None) -> torch.Tensor:
+    """Configurations saved by either package, as int64 on ``device``
+    (None: the current CUDA device)."""
+    return torch.as_tensor(np.load(_npy(path)).astype(np.int64),
+                           device=resolve_device(device))

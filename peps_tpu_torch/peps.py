@@ -11,7 +11,7 @@ torus groups come with ROADMAP queue 1, item 2.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -159,7 +159,8 @@ def _apply_h_sublattice(peps: PEPS, xs, gate, h_bond, trunc: TruncParams):
     lam_h = lam_h.clone()
     g[:, xs_t] = ga.reshape(ly, nb, *g.shape[2:])
     g[:, xs_t + 1] = gb.reshape(ly, nb, *g.shape[2:])
-    lam_h[:, xs_t + 1] = lam_new.reshape(ly, nb, -1)
+    # the singular values are real; a complex state keeps complex lambdas
+    lam_h[:, xs_t + 1] = lam_new.reshape(ly, nb, -1).to(lam_h.dtype)
     return PEPS(g, lam_v, lam_h), metrics
 
 
@@ -189,11 +190,16 @@ def simple_update_sweep(peps: PEPS, gate_h, gate_v, h_bond_h, h_bond_v,
 
 @dataclasses.dataclass(frozen=True)
 class SimpleUpdateParams:
-    """Fixed-step evolution; the reference's energy-stall early stop comes
-    with ROADMAP queue 1, item 2."""
+    """The reference's fields and defaults. energy_abs_tol > 0 turns on
+    the energy-stall stop (see :func:`simple_update`); lambda_rel_tol is
+    carried but unused, as in the reference."""
     steps: int
     tau: float
     trunc: TruncParams
+    energy_abs_tol: float = 0.0
+    lambda_rel_tol: float = 0.0
+    patience: int = 5
+    min_steps: int = 10
 
 
 class SimpleUpdateResult(NamedTuple):
@@ -201,20 +207,56 @@ class SimpleUpdateResult(NamedTuple):
     estimated_e0: float
     estimated_en: float
     executed_steps: int
+    converged: bool
     energy_history: list
 
 
-def simple_update(peps: PEPS, h_bond_h, h_bond_v,
-                  params: SimpleUpdateParams) -> SimpleUpdateResult:
+def run_with_stall_stop(peps, params: SimpleUpdateParams, one_step,
+                        step_observer: Callable | None, tau: float):
+    """The step loop of the simple updates: one_step(peps) -> (peps, e0,
+    log_norm, trunc_err) as tensors. Reads the scalars back to the host once
+    per step, calls step_observer(step=, e0=, en=, trunc_err=) and stops
+    once |e0 - e0_prev| < energy_abs_tol for ``patience`` steps in a row,
+    counting from ``min_steps`` (energy_abs_tol 0: never). Returns the
+    SimpleUpdateResult, executed_steps the last step run."""
+    history, e_prev, stall, converged = [], None, 0, False
+    step, en = 0, float("nan")
+    for step in range(1, params.steps + 1):
+        peps, e0_t, log_norm, terr = one_step(peps)
+        e0, en = float(e0_t), -float(log_norm) / tau
+        history.append(e0)
+        if step_observer is not None:
+            step_observer(step=step, e0=e0, en=en, trunc_err=float(terr))
+        if params.energy_abs_tol > 0 and e_prev is not None \
+                and step >= params.min_steps:
+            if abs(e0 - e_prev) < params.energy_abs_tol:
+                stall += 1
+                if stall >= params.patience:
+                    converged = True
+                    break
+            else:
+                stall = 0
+        e_prev = e0
+    return SimpleUpdateResult(peps, history[-1] if history else float("nan"),
+                              en, step, converged, history)
+
+
+def simple_update(peps: PEPS, h_bond_h, h_bond_v, params: SimpleUpdateParams,
+                  step_observer: Callable | None = None
+                  ) -> SimpleUpdateResult:
     """Imaginary-time evolution (OBC). h_bond_h: [d,d,d,d] uniform or
-    [Ly, Lx-1, d,d,d,d] per bond; h_bond_v: [d,d,d,d] or [Ly-1, Lx, ...].
-    Reads the step energy back to the host once per step."""
+    [Ly, Lx-1, d,d,d,d] per bond; h_bond_v: [d,d,d,d] or [Ly-1, Lx, ...]
+    (numpy arrays or tensors; :func:`fold_site_into_bonds` absorbs a
+    one-site term). step_observer(step=, e0=, en=, trunc_err=) is called
+    after each step; the energy-stall stop is the reference's
+    (``SimpleUpdateParams``)."""
     if peps.lam_v.shape[0] == peps.gammas.shape[0]:
         raise NotImplementedError("PBC simple update: ROADMAP queue 1, item 2")
     d, ly, lx = peps.phys_dim, peps.ly, peps.lx
     dt, dev = peps.gammas.dtype, peps.gammas.device
-    hh = torch.as_tensor(np.asarray(h_bond_h), dtype=dt, device=dev)
-    hv = torch.as_tensor(np.asarray(h_bond_v), dtype=dt, device=dev)
+    hh, hv = (torch.as_tensor(h if isinstance(h, torch.Tensor)
+                              else np.asarray(h), dtype=dt, device=dev)
+              for h in (h_bond_h, h_bond_v))
     if hh.ndim == 4:
         hh = hh.expand(ly, lx - 1, d, d, d, d)
     if hv.ndim == 4:
@@ -227,11 +269,33 @@ def simple_update(peps: PEPS, h_bond_h, h_bond_v,
     hv_t = hv.permute(1, 0, 2, 3, 4, 5)
     gate_v_t = gate_v.permute(1, 0, 2, 3, 4, 5)
 
-    history, en = [], float("nan")
-    for _ in range(params.steps):
-        peps, (e0, log_norm, _) = simple_update_sweep(
-            peps, gate_h, gate_v_t, hh, hv_t, params.trunc)
-        history.append(float(e0))
-        en = -float(log_norm) / tau
-    return SimpleUpdateResult(peps, history[-1] if history else float("nan"),
-                              en, params.steps, history)
+    def one_step(p):
+        p, (e0, log_norm, terr) = simple_update_sweep(
+            p, gate_h, gate_v_t, hh, hv_t, params.trunc)
+        return p, e0, log_norm, terr
+
+    return run_with_stall_stop(peps, params, one_step, step_observer, tau)
+
+
+def fold_site_into_bonds(h_bond_h, h_bond_v, h_site, ly: int, lx: int):
+    """Fold a uniform one-site term exactly into per-bond Hamiltonians (OBC):
+    numpy arrays h_h [Ly, Lx-1, d,d,d,d] and h_v [Ly-1, Lx, d,d,d,d] whose
+    bond sum is the sum of the bond terms plus h_site on every site. Each
+    site (y, x) gives h_site / z(y, x) to each of its z(y, x) bonds, so the
+    fold is exact on any rectangle."""
+    hs = np.asarray(h_site)
+    hb_h, hb_v = np.asarray(h_bond_h), np.asarray(h_bond_v)
+    d = hs.shape[0]
+    eye = np.eye(d)
+    yy, xx = np.indices((ly, lx))
+    z = ((yy > 0).astype(int) + (yy < ly - 1) + (xx > 0) + (xx < lx - 1))
+    dt = np.result_type(hb_h, hb_v, hs)
+
+    def fold(hb, z1, z2):
+        left = np.einsum("ac,bd->abcd", hs, eye)
+        right = np.einsum("ac,bd->abcd", eye, hs)
+        return (hb + left / z1[..., None, None, None, None]
+                + right / z2[..., None, None, None, None]).astype(dt)
+
+    return (fold(hb_h, z[:, :-1], z[:, 1:]),
+            fold(hb_v, z[:-1, :], z[1:, :]))

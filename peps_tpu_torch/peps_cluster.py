@@ -25,7 +25,8 @@ import torch
 from peps_tpu_torch.linalg import (TruncParams, blq, expm_taylor,
                                    safe_inverse, truncated_svd)
 from peps_tpu_torch.peps import (PEPS, SimpleUpdateParams, SimpleUpdateResult,
-                                 _transpose_peps, simple_update_sweep)
+                                 _transpose_peps, run_with_stall_stop,
+                                 simple_update_sweep)
 
 
 def flip_horizontal(peps: PEPS) -> PEPS:
@@ -122,8 +123,8 @@ def apply_cluster_gates(peps: PEPS, gate3_all: torch.Tensor,
                 *args, gate3_all[yy, xx], trunc)
             g, lam_v, lam_h = (t.clone() for t in peps)
             g[yy, xx], g[yy, xx + 1], g[yy + 1, xx + 1] = ga, gb, gc
-            lam_h[yy, xx + 1] = lab
-            lam_v[yy + 1, xx + 1] = lbc
+            lam_h[yy, xx + 1] = lab.to(lam_h.dtype)
+            lam_v[yy + 1, xx + 1] = lbc.to(lam_v.dtype)
             peps = PEPS(g, lam_v, lam_h)
             max_err = torch.maximum(max_err, err)
     return peps, max_err
@@ -176,23 +177,6 @@ def _flipped_pass(peps: PEPS, gates, trunc: TruncParams):
     return flip_horizontal(pf), err
 
 
-def _run_steps(peps, steps, one_step, step_observer, tau):
-    """The step loop: one_step(peps) -> (peps, e0 or None, log_norm or
-    None, trunc_err); reads its scalars back to the host once per step."""
-    history, e0, en = [], float("nan"), float("nan")
-    for step in range(1, steps + 1):
-        peps, e0_t, log_norm, terr = one_step(peps)
-        if e0_t is None:
-            e0 = float("nan")
-            history.append(float(peps.lam_h.sum() + peps.lam_v.sum()))
-        else:
-            e0, en = float(e0_t), -float(log_norm) / tau
-            history.append(e0)
-        if step_observer is not None:
-            step_observer(step=step, e0=e0, en=en, trunc_err=float(terr))
-    return peps, history, e0, en
-
-
 def simple_update_nnn(peps: PEPS, model, params: SimpleUpdateParams,
                       step_observer: Callable | None = None
                       ) -> SimpleUpdateResult:
@@ -200,8 +184,8 @@ def simple_update_nnn(peps: PEPS, model, params: SimpleUpdateParams,
     the NN checkerboard sweep, then h_d on the canonical clusters, then
     h_ad on the flipped ones. step_observer(step=, e0=, en=, trunc_err=) is
     called after each step. e0 is the NN sweep's bond-energy estimate, as
-    in the reference: the diagonal terms are not in it. Fixed steps, as
-    :func:`peps.simple_update`."""
+    in the reference: the diagonal terms are not in it. It stops on the
+    energy stall of :func:`peps.simple_update`."""
     ly, lx, d = peps.ly, peps.lx, peps.phys_dim
     dt, dev = peps.gammas.dtype, peps.gammas.device
     tau = params.tau
@@ -228,9 +212,7 @@ def simple_update_nnn(peps: PEPS, model, params: SimpleUpdateParams,
             terr = torch.maximum(terr, err)
         return p, e0, log_norm, terr
 
-    peps, history, e0, en = _run_steps(peps, params.steps, one_step,
-                                       step_observer, tau)
-    return SimpleUpdateResult(peps, e0, en, params.steps, history)
+    return run_with_stall_stop(peps, params, one_step, step_observer, tau)
 
 
 def _bond_triangle_counts(ly: int, lx: int):
@@ -253,9 +235,9 @@ def simple_update_triangle(peps: PEPS, model, params: SimpleUpdateParams,
     """Triangular-lattice simple update on the square PEPS: upper triangles
     (A, B, C) take h_AB/w + h_BC/w + h_AC, lower triangles (A, D, C), on
     the transposed lattice, h_AD/w + h_DC/w; w is how many triangles share
-    the NN bond. h_ad, where set, takes a pass of flipped clusters. The
-    energy history holds sum(lambda) per step (no energy estimate), as the
-    reference's."""
+    the NN bond. h_ad, where set, takes a pass of flipped clusters. As in
+    the reference, it runs every step (no stop: converged is False) and
+    its energy history holds sum(lambda) per step, no energy estimate."""
     ly, lx, d = peps.ly, peps.lx, peps.phys_dim
     dt, dev = peps.gammas.dtype, peps.gammas.device
     tau = params.tau
@@ -294,9 +276,14 @@ def simple_update_triangle(peps: PEPS, model, params: SimpleUpdateParams,
         if g_ad is not None:
             p, err3 = _flipped_pass(p, g_ad, params.trunc)
             err = torch.maximum(err, err3)
-        return p, None, None, err
+        return p, err
 
-    peps, history, _, _ = _run_steps(peps, params.steps, one_step,
-                                     step_observer, tau)
-    return SimpleUpdateResult(peps, float("nan"), float("nan"), params.steps,
+    history, step = [], 0
+    for step in range(1, params.steps + 1):
+        peps, terr = one_step(peps)
+        history.append(float(peps.lam_h.sum() + peps.lam_v.sum()))
+        if step_observer is not None:
+            step_observer(step=step, e0=float("nan"), en=float("nan"),
+                          trunc_err=float(terr))
+    return SimpleUpdateResult(peps, float("nan"), float("nan"), step, False,
                               history)

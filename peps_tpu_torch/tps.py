@@ -58,6 +58,17 @@ def random_tps(generator: torch.Generator, ly: int, lx: int, phys_dim: int,
     return arr * scale * _mask(ly, lx, phys_dim, bond_dim, arr, bc)
 
 
+def inner_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Flattened Euclidean inner product <a|b>, conjugating a (the
+    reference's SplitIndexTPS operator*)."""
+    return torch.vdot(a.reshape(-1), b.reshape(-1))
+
+
+def norm_square(a: torch.Tensor) -> torch.Tensor:
+    """<a|a>, real."""
+    return inner_product(a, a).real
+
+
 def wavefunction_sum(a: torch.Tensor, b: torch.Tensor, ca: float = 1.0,
                      cb: float = 1.0) -> torch.Tensor:
     """ca |a> + cb |b> as one TPS of bond dimension Da + Db: the two states

@@ -96,8 +96,9 @@ def test_big_buffer_plans_64_bit_offsets():
 
 
 def test_plan_refuses_what_the_kernel_does_not_take():
-    with pytest.raises(TypeError, match="complex"):
-        k2.centered_o_plan(4, 2, 8, 2, torch.complex64)
+    for dtype in (torch.int32, torch.bfloat16):     # complex is taken
+        with pytest.raises(TypeError, match="centered_o takes"):
+            k2.centered_o_plan(4, 2, 8, 2, dtype)
     with pytest.raises(ValueError, match="d <= 4"):
         k2.centered_o_plan(4, 2, 8, 5, torch.float32)
     with pytest.raises(ValueError, match="empty"):
@@ -145,8 +146,8 @@ def test_wrapper_refuses_bad_operands_before_launch(monkeypatch, case):
         psi, err = _cuda_like(torch.ones(3, 4, dtype=torch.float64)), TypeError
     elif case == "cfg_dtype":       # any integer dtype is taken, not floats
         cfg, err = _cuda_like(torch.zeros(3, 4, dtype=torch.float32)), TypeError
-    elif case == "complex":
-        holes, psi, cfg = _operands(3, 4, 16, dtype=torch.complex64)
+    elif case == "complex":     # complex holes with a real psi
+        holes, _, cfg = _operands(3, 4, 16, dtype=torch.complex64)
         err = TypeError
     else:
         d = 5

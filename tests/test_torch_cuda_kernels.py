@@ -231,14 +231,72 @@ def test_centered_o_past_2_31_elements(dev):
         assert _rel(out[:, cols], ref) <= TOL[torch.float32]
 
 
-def test_complex_raises_on_cuda(dev):
-    x = torch.zeros(2, 2, 2, dtype=torch.complex64, device=dev)
-    s = torch.zeros(2, 2, 2, 2, dtype=torch.complex64, device=dev)
+CX_TOL = {torch.complex64: 1e-5, torch.complex128: 1e-12}
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("chi,D,c", [(5, 2, 7), (32, 8, 32), (32, 8, 40)])
+def test_col_transfer_complex_left_and_right(dev, dtype, chi, D, c):
+    """The complex body (c64, c128) against the plain version, both forms:
+    small sizes with partial chunks and A tiles, and the main path's."""
+    gen = torch.Generator(device=dev).manual_seed(chi + c)
+    env = _r(gen, dev, dtype, 6, chi, D, c)
+    top = _r(gen, dev, dtype, 6, chi, D, chi)
+    site = _r(gen, dev, dtype, 6, D, D, D, D)
+    bot = _r(gen, dev, dtype, 6, c, D, c)
+    before = k1.col_transfer.launches
+    out = k1.col_transfer(env, top, site, bot)
+    assert k1.col_transfer.launches == before + 1
+    assert _rel(out, k1.col_transfer_plain(env, top, site, bot)) \
+        <= CX_TOL[dtype]
+    renv = _r(gen, dev, dtype, 6, chi, D, c)
+    out = k1.col_transfer_right(renv, top, site, bot)
+    ref = k1.col_transfer_right(renv, top, site, bot,
+                                transfer=k1.col_transfer_plain)
+    assert _rel(out, ref) <= CX_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("ns,sites,k,d", [(37, 5, 81, 3), (32, 64, 4096, 2),
+                                          (300, 5, 81, 4)])
+def test_centered_o_complex(dev, dtype, ns, sites, k, d):
+    """The complex body against the plain version, with a psi = 0 row and
+    a psi near 1e-30 (the scaled division keeps it finite in complex64)."""
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    h_re, psi, cfg = _k2_operands(dev, rdt, ns, sites, k, d, ns)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    holes = torch.complex(h_re, _r(gen, dev, rdt, ns, sites, k))
+    psi = psi * torch.exp(1j * _r(gen, dev, rdt, ns, sites))
+    psi[ns - 1] = 0.0
+    psi[0, 0] = complex(3e-30, -4e-30)
+    holes[0, 0] *= 1e-30
+    before = k2.centered_o.launches
+    out = k2.centered_o(holes, psi, cfg, d)
+    assert k2.centered_o.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, k2.centered_o_plain(holes, psi, cfg, d)) \
+        <= CX_TOL[dtype]
+
+
+@pytest.mark.parametrize("kernel", ["col_transfer", "centered_o",
+                                    "pair_transfer"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.bfloat16])
+def test_kernels_refuse_integer_and_bfloat16(dev, kernel, dtype):
+    """Only float32, float64, complex64 and complex128 reach a kernel."""
+    x3 = torch.zeros(2, 2, 2, device=dev).to(dtype)
+    x4 = torch.zeros(2, 2, 2, 2, device=dev).to(dtype)
+    launches = {"col_transfer": k1.col_transfer, "centered_o":
+                k2.centered_o, "pair_transfer": k3.pair_transfer}[kernel]
+    before = launches.launches
     with pytest.raises(TypeError):
-        k1.col_transfer(x, x, s, x)
-    with pytest.raises(TypeError):
-        k2.centered_o(x, x[..., 0], torch.zeros(2, 2, dtype=torch.int64,
-                                                device=dev), 2)
+        if kernel == "col_transfer":
+            k1.col_transfer(x3, x3, x4, x3)
+        elif kernel == "centered_o":
+            k2.centered_o(x3, x3[..., 0], torch.zeros(
+                2, 2, dtype=torch.int64, device=dev), 2)
+        else:
+            k3.pair_transfer(x4, x3, x4, x4, x3)
+    assert launches.launches == before
 
 
 def walker_operands(dev, dtype, gen, nc=32, ly=8, lx=8, chi=32, D=8):
@@ -329,37 +387,53 @@ def test_measure_on_the_card_matches_the_cpu(dev):
 
 
 @pytest.mark.parametrize("entry", ["vmc_optimize", "measure"])
-def test_complex_tps_on_the_card_raises_at_entry(dev, entry, monkeypatch):
-    """One NotImplementedError naming ROADMAP queue 2 item 1, before any
-    sweep and before any kernel launch."""
-    from peps_tpu_torch.algorithm import measure as measure_mod
-    from peps_tpu_torch.algorithm import vmc_optimize as vmc_mod
+def test_complex_tps_on_the_card_matches_the_cpu(dev, entry):
+    """A complex128 TPS runs through the entry on the card (the complex
+    K1 and K2 bodies) and agrees with the CPU run on the same uniforms:
+    energies to 1e-8 relative, the same Metropolis decisions."""
+    import numpy as np
+    from peps_tpu_torch.algorithm.measure import MeasurementParams, measure
     from peps_tpu_torch.algorithm.mc_evaluator import MCParams
+    from peps_tpu_torch.algorithm.vmc_optimize import VMCParams, vmc_optimize
     from peps_tpu_torch.linalg import TruncParams
     from peps_tpu_torch.models import spin
-    from peps_tpu_torch.montecarlo.sweep import UpdateRule
-    from peps_tpu_torch.optimizer.optimizer import OptimizerParams, SGDParams
-
-    def no_sweep(*args, **kwargs):
-        raise AssertionError("a sweep ran before the dtype check")
-    monkeypatch.setattr(vmc_mod, "mc_sweep", no_sweep)
-    monkeypatch.setattr(measure_mod, "mc_sweep", no_sweep)
-    tps, cfg = _measure_setup(dev)
-    tps = tps.to(torch.complex128)
+    from peps_tpu_torch.montecarlo.sweep import UpdateRule, draw_uniforms
+    from peps_tpu_torch.optimizer.cg import CGParams
+    from peps_tpu_torch.optimizer.optimizer import OptimizerParams, SRParams
+    gen = torch.Generator().manual_seed(6)
+    uni = [draw_uniforms(gen, 4, 3, 3, torch.float64, "cpu")
+           for _ in range(8)]
     trunc = TruncParams(9, 1, 1e-12, scheme="sketch")
-    before = k1.col_transfer.launches
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 2, item 1") as info:
+    out = {}
+    for where in ("cpu", dev):
+        tps, cfg = _measure_setup(where)
+        rng = np.random.default_rng(4)
+        tps = tps * torch.as_tensor(np.exp(0.3j * rng.standard_normal(
+            tuple(tps.shape))), device=where)
+        it = iter([tuple(u.to(where) for u in pair) for pair in uni])
+        before = (k1.col_transfer.launches, k2.centered_o.launches)
         if entry == "measure":
-            measure_mod.measure(tps, spin.heisenberg(),
-                                measure_mod.MeasurementParams(), 9, trunc,
-                                UpdateRule(), cfg)
+            res = measure(tps, spin.heisenberg(), MeasurementParams(
+                num_samples=3, num_warmup_sweeps=1, nchains=4,
+                chunk_size=2), 9, trunc, UpdateRule(), cfg,
+                sweep_uniforms=lambda: next(it))
+            out[str(where)] = (res.stats["energy"][0], res.accept_rate)
         else:
-            vmc_mod.vmc_optimize(tps, spin.heisenberg(), vmc_mod.VMCParams(
-                9, trunc, MCParams(nchains=4), OptimizerParams(1, SGDParams())),
-                configs=cfg)
-    assert entry in str(info.value) and "complex" in str(info.value)
-    assert k1.col_transfer.launches == before
+            res = vmc_optimize(tps, spin.heisenberg(), VMCParams(
+                9, trunc, MCParams(num_samples=2, num_warmup_sweeps=1,
+                                   nchains=4),
+                OptimizerParams(2, SRParams(CGParams(20, 1e-10),
+                                            diag_shift=1e-2), lr=0.05)),
+                configs=cfg, sweep_uniforms=lambda: next(it))
+            out[str(where)] = (np.array(res.energies),
+                               res.final_configs.cpu().numpy())
+        if where == dev:
+            assert k1.col_transfer.launches > before[0]
+            if entry == "vmc_optimize":
+                assert k2.centered_o.launches > before[1]
+    a, b = out["cpu"], out[str(dev)]
+    assert np.allclose(b[0], a[0], rtol=1e-8, atol=1e-12)
+    assert np.array_equal(b[1], a[1])
 
 
 @pytest.mark.parametrize("algo", ["minsr", "adam"])
@@ -460,15 +534,42 @@ def test_pair_transfer_stride0_broadcasts(dev, dtype):
     assert _rel(out, k3.pair_transfer_plain(*full)) <= TOL[dtype]
 
 
-def test_pair_transfer_raises_on_complex_and_unplannable(dev):
-    x = torch.zeros(2, 2, 2, 2, dtype=torch.complex64, device=dev)
-    t3 = torch.zeros(2, 2, 2, dtype=torch.complex64, device=dev)
-    with pytest.raises(TypeError, match="complex"):
-        k3.pair_transfer(x, t3, x, x, t3)
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("case", ["small", "odd", "env_step", "diag_block",
+                                  "antidiag_block"])
+def test_pair_transfer_complex_left_and_right(dev, dtype, case):
+    """The complex body against the plain version, both forms, at the small
+    and odd sizes and the main path's shapes. At the blocks' 3136 items the
+    plain version's complex128 intermediates do not fit the card (past 80
+    GB), so there it is held on the first 4 chains' items (the kernel runs
+    on all of them)."""
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    ops = pair_operands(dev, dtype, gen, case)
+    sub = 4 if case.endswith("block") and dtype == torch.complex128 \
+        else None
+
+    def head(x):
+        return x[:sub] if sub else x
+
+    # the operands with the chain axis: 4 batch dims before their own
+    small = [head(o) if o.dim() - k == 4 else o
+             for o, k in zip(ops, (4, 3, 4, 4, 3))]
     before = k3.pair_transfer.launches
-    big = torch.zeros(48, 12, 12, 48, dtype=torch.float64, device=dev)
-    top = torch.zeros(48, 12, 48, dtype=torch.float64, device=dev)
-    site = torch.zeros(12, 12, 12, 12, dtype=torch.float64, device=dev)
+    out = head(k3.pair_transfer(*ops))
+    assert k3.pair_transfer.launches == before + 1
+    assert _rel(out, k3.pair_transfer_plain(*small)) <= CX_TOL[dtype]
+    del out
+    out = head(k3.pair_transfer_right(*ops))
+    ref = k3.pair_transfer_right(*small, transfer=k3.pair_transfer_plain)
+    assert _rel(out, ref) <= CX_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex64])
+def test_pair_transfer_raises_on_unplannable(dev, dtype):
+    before = k3.pair_transfer.launches
+    big = torch.zeros(48, 12, 12, 48, dtype=dtype, device=dev)
+    top = torch.zeros(48, 12, 48, dtype=dtype, device=dev)
+    site = torch.zeros(12, 12, 12, 12, dtype=dtype, device=dev)
     with pytest.raises(RuntimeError):       # no plan fits shared memory
         k3.pair_transfer(big, top, site, site, top)
     assert k3.pair_transfer.launches == before

@@ -109,29 +109,31 @@ def test_measure_runs_on_the_cpu_for_a_cpu_tps(no_cuda):
     assert res.psi_samples.shape == (2, 2)
 
 
-class _CudaLike(torch.Tensor):
-    """A CPU tensor that reports a CUDA device."""
-
-    @property
-    def device(self):
-        return torch.device("cuda", 0)
-
-
 @pytest.mark.parametrize("entry", ["vmc_optimize", "measure"])
-def test_complex_tps_on_the_card_raises_at_entry(entry, monkeypatch):
-    """The error names the ROADMAP item and comes before any sweep."""
-    from peps_tpu_torch.algorithm import measure as measure_mod
-    from peps_tpu_torch.algorithm import vmc_optimize as vmc_mod
-
-    def no_sweep(*args, **kwargs):
-        raise AssertionError("a sweep ran before the dtype check")
-    monkeypatch.setattr(vmc_mod, "mc_sweep", no_sweep)
-    monkeypatch.setattr(measure_mod, "mc_sweep", no_sweep)
-    tps = torch.Tensor._make_subclass(
-        _CudaLike, torch.zeros(2, 2, 2, 1, 1, 1, 1, dtype=torch.complex128))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 1"):
-        if entry == "measure":
-            _tiny_measure(tps)
-        else:
-            from peps_tpu_torch.algorithm.vmc_optimize import vmc_optimize
-            vmc_optimize(tps, spin.heisenberg(), None)
+def test_complex_tps_runs_through_the_entry(entry):
+    """A complex TPS is taken at the entry (no dtype refusal: the kernels
+    take complex64 and complex128 on the card) and runs to finite
+    energies; the entry check of earlier slices is gone."""
+    from peps_tpu_torch import device
+    from peps_tpu_torch.algorithm.mc_evaluator import MCParams
+    from peps_tpu_torch.algorithm.vmc_optimize import VMCParams, vmc_optimize
+    from peps_tpu_torch.lattice import boundary_mask
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.optimizer.optimizer import OptimizerParams, SGDParams
+    assert not hasattr(device, "require_real_on_card")
+    rng = np.random.default_rng(1)
+    shape = (2, 2, 2, 2, 2, 2, 2)
+    tps = torch.as_tensor((rng.standard_normal(shape)
+                           + 1j * rng.standard_normal(shape))
+                          * boundary_mask(2, 2, 2, 2))
+    if entry == "measure":
+        res = _tiny_measure(tps)
+        assert np.isfinite(res.stats["energy"][0])
+    else:
+        res = vmc_optimize(tps, spin.heisenberg(), VMCParams(
+            2, TruncParams(2, 1, 1e-10, scheme="sketch"),
+            MCParams(num_samples=2, num_warmup_sweeps=1, nchains=2),
+            OptimizerParams(1, SGDParams()), occupancy=((0, 2), (1, 2))),
+            torch.Generator().manual_seed(0))
+        assert res.state.dtype == torch.complex128
+        assert np.isfinite(res.energies).all()

@@ -127,11 +127,16 @@ def test_col_transfer_launches_or_raises_on_cuda(monkeypatch):
     with pytest.raises((RuntimeError, OSError)):
         k1.col_transfer(env, top, site, _cuda_like(4, 2, 4))
     assert k1.col_transfer.launches == before
-    with pytest.raises(TypeError, match="complex"):
-        k1.col_transfer(_cuda_like(4, 2, 4, dtype=torch.complex64),
-                        _cuda_like(4, 2, 4, dtype=torch.complex64),
-                        _cuda_like(2, 2, 2, 2, dtype=torch.complex64),
-                        _cuda_like(4, 2, 4, dtype=torch.complex64))
+    # complex goes down the launch path too (its own entry); integers and
+    # bfloat16 are refused before it
+    for dtype, err in ((torch.complex64, (RuntimeError, OSError)),
+                       (torch.int32, TypeError), (torch.bfloat16, TypeError)):
+        with pytest.raises(err):
+            k1.col_transfer(_cuda_like(4, 2, 4, dtype=dtype),
+                            _cuda_like(4, 2, 4, dtype=dtype),
+                            _cuda_like(2, 2, 2, 2, dtype=dtype),
+                            _cuda_like(4, 2, 4, dtype=dtype))
+    assert k1.col_transfer.launches == before
 
 
 def test_centered_o_launches_or_raises_on_cuda(monkeypatch):
@@ -154,13 +159,15 @@ def test_pair_transfer_launches_or_raises_on_cuda(monkeypatch):
     with pytest.raises((RuntimeError, OSError)):
         k3.pair_transfer(env, top, row, row, top)
     assert k3.pair_transfer.launches == before
-    with pytest.raises(TypeError, match="complex"):
-        c = torch.complex64
-        k3.pair_transfer(_cuda_like(4, 2, 2, 4, dtype=c),
-                         _cuda_like(4, 2, 4, dtype=c),
-                         _cuda_like(2, 2, 2, 2, dtype=c),
-                         _cuda_like(2, 2, 2, 2, dtype=c),
-                         _cuda_like(4, 2, 4, dtype=c))
+    for c, err in ((torch.complex128, (RuntimeError, OSError)),
+                   (torch.int32, TypeError), (torch.bfloat16, TypeError)):
+        with pytest.raises(err):
+            k3.pair_transfer(_cuda_like(4, 2, 2, 4, dtype=c),
+                             _cuda_like(4, 2, 4, dtype=c),
+                             _cuda_like(2, 2, 2, 2, dtype=c),
+                             _cuda_like(2, 2, 2, 2, dtype=c),
+                             _cuda_like(4, 2, 4, dtype=c))
+    assert k3.pair_transfer.launches == before
 
 
 def test_plain_versions_on_cpu_count_no_launch():
