@@ -102,7 +102,9 @@ Phases, one line each (failures exit non-zero before the last line):
      vmc_optimize -> measure() (8 samples, the S+S- walkers), E/site in
      (-0.70, -0.40), complex K1 and K2 launched; (b) an energy-only
      J1-J2 (J2 = J1/2) evaluation of that complex64 state with
-     eval_chunk 8 (complex K3), its peak memory; (c) complex128 on the card
+     eval_chunk 8 (complex K3), its peak memory and K3's device ms in it
+     (CUDA events around each K3 call) against its wall seconds; (c)
+     complex128 on the card
      against the port on the CPU: one SR evaluation of J1-J2 on a seeded
      4x4, D=4 state, chi=16, 8 chains, the same uniforms and sketch
      blocks, energy, gradient and SR buffers within 1e-10 relative and the
@@ -116,9 +118,11 @@ Phases, one line each (failures exit non-zero before the last line):
 Phase 2 also holds the complex bodies of K1, K2 and K3 (complex64 to 1e-5,
 complex128 to 1e-12) at the main path's largest shapes: K1 at the pair
 traces and the walker, K2 on the 8x8 D=8 SR buffer with a psi = 0 row, K3
-at the BTen2 env step and the diagonal block (there the complex128 plain
-chain and einsum run on 4 chains' items: the full block's intermediates do
-not fit the card), each with its time, bound (a complex multiply-add is 4
+at every case of k3_cases (the BTen2 env step in both forms, the diagonal
+block's lblk and rblk, the anti-diagonal block's lblk; at the blocks the
+complex128 plain chain and einsum run on 4 chains' items: the full
+block's intermediates do not fit the card), each with its time, bound (a
+complex multiply-add is 4
 real FMAs; complex64 on the FP32 peak, complex128 on the f64 one), the
 plain version's and the yardstick's times and the plan (kernels_complex
 lines); a slow complex kernel is reported, not failed.
@@ -174,7 +178,8 @@ TOL = {"float32": 1e-5, "float64": 1e-12, "complex64": 1e-5,
 COMPLEX_DTYPES = ("complex64", "complex128")
 # phase 2's complex cases: the main path's largest shapes of each kernel
 K1_COMPLEX_CASES = ("nn_traces", "walker")
-K3_COMPLEX_CASES = ("env_step", "diag_block")
+K3_COMPLEX_CASES = ("env_step", "env_step_right", "diag_block",
+                    "diag_block_right", "antidiag_block")
 K3_SUBSET_CHAINS = 4       # complex128 blocks: the plain chain on 4 chains
 # phase 9 (bosonic_close)
 CLOSE_SU_STEPS = 40
@@ -379,6 +384,45 @@ def k3_views(form, ops):
         return tuple(ops)
     env, *rest = ops
     return (env, *(o.transpose(-3, -1) for o in rest))
+
+
+def k3_subset(views):
+    """The first K3_SUBSET_CHAINS chains' items of a block's operands (those
+    with the chain axis have 4 batch dims before their own)."""
+    return tuple(o[:K3_SUBSET_CHAINS] if o.dim() - k == 4 else o
+                 for o, k in zip(views, (4, 3, 4, 4, 3)))
+
+
+def k3_device_ms(fn):
+    """fn() with energy.py's K3 calls (pair_transfer, pair_transfer_right)
+    each between two CUDA events. Returns (fn's result, device ms summed
+    over those calls, the calls, fn's synchronized wall seconds)."""
+    import torch
+    from peps_tpu_torch.algorithm import energy
+    events = []
+
+    def timed(f):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = f(*args, **kwargs)
+            end.record()
+            events.append((start, end))
+            return out
+        return call
+
+    orig = energy.pair_transfer, energy.pair_transfer_right
+    energy.pair_transfer, energy.pair_transfer_right = map(timed, orig)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        energy.pair_transfer, energy.pair_transfer_right = orig
+    wall = time.perf_counter() - t0
+    return out, sum(a.elapsed_time(b) for a, b in events), len(events), wall
 
 
 def k3_phase(device, peak, gen):
@@ -687,10 +731,8 @@ def phase_kernels_complex(device, peak, gen):
                 continue
             views = k3_views(form, ops)
             sub = views
-            if name.endswith("block") and dtype == torch.complex128:
-                # the operands with the chain axis: 4 batch dims
-                sub = tuple(o[:K3_SUBSET_CHAINS] if o.dim() - k == 4 else o
-                            for o, k in zip(views, (4, 3, 4, 4, 3)))
+            if "block" in name and dtype == torch.complex128:
+                sub = k3_subset(views)
             res = k3.pair_transfer(*views)
             ref = k3.pair_transfer_plain(*sub)
             torch.cuda.synchronize()
@@ -1601,13 +1643,13 @@ def phase_bosonic_close(res, device):
     width, each step with the launch counters at 0: (a) the complex64 main
     path (SU with the energy-stall stop and a step observer, to_tps, SR,
     measure() with the walkers); (b) a complex J1-J2 energy-only evaluation
-    with eval_chunk; (c) complex128 on the card against the port on the CPU
-    (4x4, D=4, chi=16, 8 chains, one SR evaluation of J1-J2 on the same
-    uniforms); (d) TFIM: the site term folded into the bonds, SU, then SR
-    with Suwa-Todo from uniform configurations; (e) eval_chunk on the real
-    J1-J2 SR evaluation against the unchunked one. Returns (launches summed
-    over its steps, {kernel: {complex run: launches}} of (a), (b) and
-    (c))."""
+    with eval_chunk, K3's device ms in it; (c) complex128 on the card
+    against the port on the CPU (4x4, D=4, chi=16, 8 chains, one SR
+    evaluation of J1-J2 on the same uniforms); (d) TFIM: the site term
+    folded into the bonds, SU, then SR with Suwa-Todo from uniform
+    configurations; (e) eval_chunk on the real J1-J2 SR evaluation against
+    the unchunked one. Returns (launches summed over its steps, {kernel:
+    {complex run: launches}} of (a), (b) and (c))."""
     import numpy as np
     import torch
     from peps_tpu_torch.algorithm.energy import ModelTensors
@@ -1711,16 +1753,19 @@ def phase_bosonic_close(res, device):
     j1j2 = spin.j1j2_xxz(1, 1, 0.5, 0.5)
     mt = ModelTensors.from_model(j1j2, vmc.state.dtype, device)
     gen = torch.Generator(device=device).manual_seed(93)
-    (e_j, err_j), l_j = step(
-        "energy_only_j1j2_complex64", lambda: mc_energy_only(
-            vmc.state, vmc.final_configs, mt, CHI, trunc,
-            UpdateRule("exchange"), 1,
-            lambda: draw_uniforms(gen, NCHAINS, LY, LX, torch.float32,
-                                  device), eval_chunk=CLOSE_EVAL_CHUNK))
+    ((e_j, err_j), k3_ms, k3_calls, wall_j), l_j = step(
+        "energy_only_j1j2_complex64", lambda: k3_device_ms(
+            lambda: mc_energy_only(
+                vmc.state, vmc.final_configs, mt, CHI, trunc,
+                UpdateRule("exchange"), 1,
+                lambda: draw_uniforms(gen, NCHAINS, LY, LX, torch.float32,
+                                      device), eval_chunk=CLOSE_EVAL_CHUNK)))
     log("bosonic_close", step="energy_only_j1j2_complex64_result",
         eval_chunk=CLOSE_EVAL_CHUNK, energy_per_site=float(e_j) / n,
         energy_stderr_per_site=float(err_j) / n,
-        peak_mem_GB=torch.cuda.max_memory_allocated(device) / 1e9)
+        peak_mem_GB=torch.cuda.max_memory_allocated(device) / 1e9,
+        seconds=wall_j, k3_calls=k3_calls, k3_device_ms=k3_ms,
+        k3_share=k3_ms / (1e3 * wall_j))
     if not math.isfinite(float(e_j)) or l_j["pair_transfer"] == 0:
         fail(f"complex J1-J2: energy {float(e_j)}, launches {l_j}")
 

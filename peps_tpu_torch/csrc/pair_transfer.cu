@@ -48,7 +48,7 @@
 // right form's views), and zero-fills what lies past the last c or A.
 // Shared memory is zeroed first, so the padding a product reads is zero.
 //
-// The two bodies:
+// The bodies:
 //  - f64 on the DMMA tensor cores: every product is warp-level
 //    mma.sync.aligned.m8n8k4.f64, a warp owning 4 x 2 tiles of 8 x 8, so
 //    that one fragment load feeds two or four MMAs (4 x 4 in step 4, whose
@@ -70,6 +70,23 @@
 //    4 x 4 tiles that two CTAs of 8 warps leave registers for give 16 FMAs
 //    a k-step against the loads, addresses and loop around them
 //    (scripts/ablate_pair_transfer.py times it with each part taken out).
+//  - complex64 and complex128: the same kernel, copies, offset tables and
+//    chunk loop on interleaved (re, im) elements, with no conjugate
+//    anywhere. The work is four real FMAs a complex multiply-add (805
+//    MFLOP an item at chi = 32, D = 8). env is copied one chunk at a time
+//    in step 1's row order. One CTA of 8 warps per SM.
+//    complex64, on the FP32 CUDA cores: each thread owns a 4 x 4 complex
+//    tile (lanes 4 x 8 on a warp block of 16 x 32), so each k-step loads
+//    two 32-byte fragments and issues 64 FMAs; step 1 runs as Ts^T E so
+//    that its long side lies along the warp's 32 columns. Step 4's 4 x 4
+//    tile stays in registers across the chunks.
+//    complex128, on the DMMA tensor cores: mma.sync.m16n8k8.f64 (the
+//    m8n8k4 shape reaches only half the DMMA peak on the H100), four real
+//    MMAs a complex tile product, the imaginary part of the A fragment
+//    negated in registers for the real output; each fragment value is one
+//    16-byte load of (re, im), the leading dims 2 mod 8 elements so that a
+//    quarter-warp's loads hit 8 distinct bank groups; K padded to 8. Step
+//    4's warp tile (2 x 2 MMA tiles) stays in fragments across the chunks.
 // The plan (A tile, c chunk, env grouping, leading dims, region offsets,
 // shared bytes) is chosen in Python (kernels/pair_transfer.py:
 // pair_transfer_plan) and comes in the meta; check_plan refuses one this
@@ -77,8 +94,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "complex_ops.cuh"
 
 namespace {
 
@@ -126,6 +141,14 @@ struct Box {
 struct Boxes {
   Box e, b, t, r1, r2;
 };
+
+// The body an element type runs (kind) and the multiple K is padded to:
+// 0 f32 SIMT, 1 f64 on m8n8k4, 2 complex64 SIMT, 3 complex128 on m16n8k8.
+template <typename T> struct Body;
+template <> struct Body<float> { static constexpr int kind = 0, kq = 1; };
+template <> struct Body<double> { static constexpr int kind = 1, kq = 4; };
+template <> struct Body<float2> { static constexpr int kind = 2, kq = 1; };
+template <> struct Body<double2> { static constexpr int kind = 3, kq = 8; };
 
 // Step 1's row index i is env value (n nm + m) kc + c' (with bits 1 and 2
 // of i swapped when sw: f64's 8-row MMA tiles then read c' pairs of m, m +
@@ -176,6 +199,18 @@ __device__ __forceinline__ void dmma(double (&c)[2], double a, double b) {
       "{%4, %5};\n"
       : "=d"(c[0]), "=d"(c[1])
       : "d"(a), "d"(b), "d"(c[0]), "d"(c[1]));
+}
+// c += a b on one 16 x 8 x 8 tile: lane l (g = l >> 2, q = l & 3) holds
+// a = A[g][q], A[g + 8][q], A[g][q + 4], A[g + 8][q + 4], b = B[q][g],
+// B[q + 4][g], c = C[g][2q], C[g][2q + 1], C[g + 8][2q], C[g + 8][2q + 1].
+__device__ __forceinline__ void dmma16(double (&c)[4], const double (&a)[4],
+                                       const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=d"(c[0]), "=d"(c[1]), "=d"(c[2]), "=d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]),
+        "d"(c[0]), "d"(c[1]), "d"(c[2]), "d"(c[3]));
 }
 // End of PTX helpers.
 
@@ -248,9 +283,9 @@ __device__ __forceinline__ void run_box(const Box& b, int4 f, T* dst,
   } else if constexpr (sizeof(T) == 4) {
     if (b.vec == 2) run_box_v<T, 2>(b, f, dst, src, cv);
     else run_box_v<T, 4>(b, f, dst, src, cv);
-  } else {
+  } else if constexpr (sizeof(T) == 8) {
     run_box_v<T, 2>(b, f, dst, src, cv);
-  }
+  }   // 16-byte elements: one a copy
 }
 
 // Tile t of an (n_mt x n_nt)-tile product: the lanes of a warp cover an
@@ -479,15 +514,273 @@ __device__ __forceinline__ void dmma_product(const double* X, int ldx, EPos xp,
   }
 }
 
+// ------------------------------------- complex64: SIMT complex products --
+
+// Four complex values (32 bytes) as two 16-byte loads.
+__device__ __forceinline__ void load_cx4(float2 (&v)[4], const float2* p) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = make_float2(a.x, a.y);
+  v[1] = make_float2(a.z, a.w);
+  v[2] = make_float2(b.x, b.y);
+  v[3] = make_float2(b.z, b.w);
+}
+
+// acc[i][j] += x[i] y[j]: four real FMAs a complex multiply-add.
+__device__ __forceinline__ void cfma_tile(float2 (&acc)[4][4],
+                                          const float2 (&x)[4],
+                                          const float2 (&y)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc[i][j].x = fmaf(x[i].x, y[j].x, acc[i][j].x);
+      acc[i][j].x = fmaf(-x[i].y, y[j].y, acc[i][j].x);
+      acc[i][j].y = fmaf(x[i].x, y[j].y, acc[i][j].y);
+      acc[i][j].y = fmaf(x[i].y, y[j].x, acc[i][j].y);
+    }
+}
+
+// acc[4][4] += sum_k x[k][0:4] y[k][0:4], x and y K-major complex in shared
+// memory and offset to the tile: 64 FMAs per 16 floats loaded; the next k's
+// fragments load before this k's FMAs.
+__device__ __forceinline__ void csimt_acc(float2 (&acc)[4][4], const float2* x,
+                                          int ldx, const float2* y, int ldy,
+                                          int K) {
+  if (K <= 0) return;
+  float2 x0[4], y0[4], x1[4], y1[4];
+  load_cx4(x0, x);
+  load_cx4(y0, y);
+  for (int k = 0; k < K; k += 2) {
+    const bool two = k + 1 < K;
+    if (two) {
+      load_cx4(x1, x + ldx);
+      load_cx4(y1, y + ldy);
+    }
+    cfma_tile(acc, x0, y0);
+    x += 2 * ldx;
+    y += 2 * ldy;
+    if (k + 2 < K) {
+      load_cx4(x0, x);
+      load_cx4(y0, y);
+    }
+    if (two) cfma_tile(acc, x1, y1);
+  }
+}
+
+// The origin (m0, n0) of the thread's 4 x 4 tile in warp block s (16 x 32)
+// of a product with n_sm blocks along M: lane & 3 picks the rows and lane
+// >> 2 the columns, so that a quarter-warp reads 4 X fragments and 2 Y
+// fragments, each 32 contiguous bytes, on distinct bank groups.
+__device__ __forceinline__ void cx_tile_of(int s, int n_sm, int& m0,
+                                           int& n0) {
+  const int lane = threadIdx.x & 31;
+  m0 = (s % n_sm) * 16 + (lane & 3) * 4;
+  n0 = (s / n_sm) * 32 + (lane >> 2) * 4;
+}
+
+// P[m][n] -> dst[ro[m] + co[n]] for the tile at (m0, n0), m0 < M, n0 < N:
+// 16 bytes (two values) a store along n, or along m, where the tile's pairs
+// of positions are contiguous and aligned there (step 1's (u, A') pairs
+// of A'), else 8.
+__device__ __forceinline__ void cx_store(const float2 (&acc)[4][4], int m0,
+                                         int n0, int M, int N, float2* dst,
+                                         const int* ro, const int* co) {
+  const bool vn = n0 + 4 <= N && co[n0 + 1] == co[n0] + 1 &&
+                  co[n0 + 3] == co[n0 + 2] + 1;
+  const bool vm = !vn && m0 + 4 <= M && ro[m0 + 1] == ro[m0] + 1 &&
+                  ro[m0 + 3] == ro[m0 + 2] + 1;
+  if (vn) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (m0 + i >= M) continue;
+#pragma unroll
+      for (int h = 0; h < 4; h += 2) {
+        float2* const d = dst + ro[m0 + i] + co[n0 + h];
+        if ((reinterpret_cast<uintptr_t>(d) & 15) == 0) {
+          *reinterpret_cast<float4*>(d) = make_float4(
+              acc[i][h].x, acc[i][h].y, acc[i][h + 1].x, acc[i][h + 1].y);
+        } else {
+          d[0] = acc[i][h];
+          d[1] = acc[i][h + 1];
+        }
+      }
+    }
+  } else if (vm) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (n0 + j >= N) continue;
+#pragma unroll
+      for (int h = 0; h < 4; h += 2) {
+        float2* const d = dst + ro[m0 + h] + co[n0 + j];
+        if ((reinterpret_cast<uintptr_t>(d) & 15) == 0) {
+          *reinterpret_cast<float4*>(d) = make_float4(
+              acc[h][j].x, acc[h][j].y, acc[h + 1][j].x, acc[h + 1][j].y);
+        } else {
+          d[0] = acc[h][j];
+          d[1] = acc[h + 1][j];
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (m0 + i < M && n0 + j < N) dst[ro[m0 + i] + co[n0 + j]] = acc[i][j];
+  }
+}
+
+// dst <- X^T Y for an M x N complex product (K-major operands in shared
+// memory), warp blocks of 16 x 32, 4 x 4 tiles per thread.
+__device__ __forceinline__ void cx_product(const float2* X, int ldx,
+                                           const float2* Y, int ldy, int K,
+                                           int M, int N, float2* dst,
+                                           const int* ro, const int* co) {
+  const int n_sm = cdiv(M, 16), total = n_sm * cdiv(N, 32);
+  for (int s = threadIdx.x >> 5; s < total; s += kWarps) {
+    int m0, n0;
+    cx_tile_of(s, n_sm, m0, n0);
+    if (m0 >= M || n0 >= N) continue;
+    float2 acc[4][4] = {};
+    csimt_acc(acc, X + m0, ldx, Y + n0, ldy, K);
+    cx_store(acc, m0, n0, M, N, dst, ro, co);
+  }
+}
+
+// ------------------------------ complex128: m16n8k8 DMMA tensor cores --
+
+// A warp's fragments of WM x WN tiles at one k-step of 8: x and y point at
+// the lane's first value (row lane & 3 of K, column lane >> 2 of the tile);
+// each value is one 16-byte load of (re, im).
+template <int WM, int WN>
+__device__ __forceinline__ void zmma_frags(double2 (&a)[WM][4],
+                                           double2 (&b)[WN][2],
+                                           const double2* x, int ldx,
+                                           const double2* y, int ldy) {
+#pragma unroll
+  for (int i = 0; i < WM; ++i) {
+    a[i][0] = x[16 * i];
+    a[i][1] = x[16 * i + 8];
+    a[i][2] = x[4 * ldx + 16 * i];
+    a[i][3] = x[4 * ldx + 16 * i + 8];
+  }
+#pragma unroll
+  for (int j = 0; j < WN; ++j) {
+    b[j][0] = y[8 * j];
+    b[j][1] = y[4 * ldy + 8 * j];
+  }
+}
+
+// c += a b in complex arithmetic on one 16 x 8 x 8 tile: four real MMAs,
+// c[0] += ar br + (-ai) bi and c[1] += ar bi + ai br, a's imaginary part
+// negated in registers.
+__device__ __forceinline__ void zmma(double (&c)[2][4], const double2 (&a)[4],
+                                     const double2 (&b)[2]) {
+  const double ar[4] = {a[0].x, a[1].x, a[2].x, a[3].x};
+  const double ai[4] = {a[0].y, a[1].y, a[2].y, a[3].y};
+  const double an[4] = {-a[0].y, -a[1].y, -a[2].y, -a[3].y};
+  const double br[2] = {b[0].x, b[1].x};
+  const double bi[2] = {b[0].y, b[1].y};
+  dmma16(c[0], ar, br);
+  dmma16(c[0], an, bi);
+  dmma16(c[1], ar, bi);
+  dmma16(c[1], ai, br);
+}
+
+// acc += the warp tile's complex product, K a multiple of 8; with kPrefetch
+// the next k-step's fragments load before this one's MMAs (step 4 goes
+// without: its 2 x 2 tiles' accumulators and a second set of fragments
+// would pass the 255 registers a thread has, and at one chunk of c its K
+// is one k-step).
+template <int WM, int WN, bool kPrefetch = true>
+__device__ __forceinline__ void zmma_acc(double (&acc)[WM][WN][2][4],
+                                         const double2* x, int ldx,
+                                         const double2* y, int ldy, int K) {
+  if (K <= 0) return;
+  const int sx = 8 * ldx, sy = 8 * ldy;
+  if constexpr (!kPrefetch) {
+    double2 a[WM][4], b[WN][2];
+    for (int k = 0; k < K; k += 8, x += sx, y += sy) {
+      zmma_frags<WM, WN>(a, b, x, ldx, y, ldy);
+#pragma unroll
+      for (int i = 0; i < WM; ++i)
+#pragma unroll
+        for (int j = 0; j < WN; ++j) zmma(acc[i][j], a[i], b[j]);
+    }
+    return;
+  }
+  double2 a0[WM][4], b0[WN][2], a1[WM][4], b1[WN][2];
+  zmma_frags<WM, WN>(a0, b0, x, ldx, y, ldy);
+  for (int k = 0; k < K; k += 16) {
+    const bool two = k + 8 < K;
+    if (two) zmma_frags<WM, WN>(a1, b1, x + sx, ldx, y + sy, ldy);
+#pragma unroll
+    for (int i = 0; i < WM; ++i)
+#pragma unroll
+      for (int j = 0; j < WN; ++j) zmma(acc[i][j], a0[i], b0[j]);
+    x += 2 * sx;
+    y += 2 * sy;
+    if (k + 16 < K) zmma_frags<WM, WN>(a0, b0, x, ldx, y, ldy);
+    if (two) {
+#pragma unroll
+      for (int i = 0; i < WM; ++i)
+#pragma unroll
+        for (int j = 0; j < WN; ++j) zmma(acc[i][j], a1[i], b1[j]);
+    }
+  }
+}
+
+// Where value v (0-3) of a lane's accumulator fragment lies in its 16 x 8
+// tile: row g + 8 (v >> 1), column 2 q + (v & 1).
+__device__ __forceinline__ int zrow(int lane, int v) {
+  return (lane >> 2) + 8 * (v >> 1);
+}
+__device__ __forceinline__ int zcol(int lane, int v) {
+  return 2 * (lane & 3) + (v & 1);
+}
+
+// dst <- X^T Y for an M x N complex product (K-major operands in shared
+// memory, K padded to 8), warp tiles of WM x WN MMA tiles of 16 x 8; P[m][n]
+// -> dst[ro[m] + co[n]].
+template <int WM, int WN>
+__device__ __forceinline__ void zmma_product(const double2* X, int ldx,
+                                             const double2* Y, int ldy, int K,
+                                             int M, int N, double2* dst,
+                                             const int* ro, const int* co) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int n_wm = cdiv(M, 16 * WM), n_wn = cdiv(N, 8 * WN);
+  for (int w = warp; w < n_wm * n_wn; w += kWarps) {
+    const int m0 = (w % n_wm) * 16 * WM, n0 = (w / n_wm) * 8 * WN;
+    double acc[WM][WN][2][4] = {};
+    zmma_acc<WM, WN>(acc, X + q * ldx + m0 + g, ldx, Y + q * ldy + n0 + g,
+                     ldy, K);
+#pragma unroll
+    for (int i = 0; i < WM; ++i)
+#pragma unroll
+      for (int j = 0; j < WN; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int m = m0 + 16 * i + zrow(lane, v);
+          const int n = n0 + 8 * j + zcol(lane, v);
+          if (m < M && n < N)
+            dst[ro[m] + co[n]] = make_double2(acc[i][j][0][v],
+                                              acc[i][j][1][v]);
+        }
+  }
+}
+
 // ---------------------------------------------------------------- kernel --
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, Body<T>::kind == 0 ? 2 : 1)
 pair_transfer_kernel(const T* __restrict__ env, const T* __restrict__ top,
                      const T* __restrict__ row1, const T* __restrict__ row2,
                      const T* __restrict__ bot, T* __restrict__ out,
                      const Meta m, const Plan p, const Boxes bx) {
-  constexpr bool kMma = sizeof(T) == 8;
+  constexpr int kKind = Body<T>::kind;
+  constexpr bool kMma = kKind == 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
   const int tid = threadIdx.x;
@@ -511,8 +804,8 @@ pair_transfer_kernel(const T* __restrict__ env, const T* __restrict__ top,
     ob += i * m.sb[k];
   }
 
-  // the products' sizes; K padded to the MMA's 4 in f64
-  const int kq = kMma ? 4 : 1;
+  // the products' sizes; K padded to the MMA's 4 in f64, 8 in complex128
+  constexpr int kq = Body<T>::kq;
   const int M1 = m.nn * kc * m.nm, N1 = m.nu * ta, K1 = round_up(m.na, kq);
   const int M2 = m.nn * kc * ta, N2 = m.nd * m.nr,
             K2 = round_up(m.nu * m.nm, kq);
@@ -583,15 +876,26 @@ pair_transfer_kernel(const T* __restrict__ env, const T* __restrict__ top,
   const int n_ch = cdiv(m.nc, kc);
   const EPos ident{1, 1, 0, 1 << 30, 0, 0};
   // step 4's output tile for all chunks: f64, warp w's 32 x 32 tile; f32,
-  // the thread's 4 x 8 tile
+  // the thread's 4 x 8 tile; complex64, the thread's 4 x 4 tile of warp w's
+  // 16 x 32 block (at (mc4, nc4)); complex128, warp w's 32 x 16 tile
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
-  const int n_wm4 = cdiv(M4, 32);
-  int mi4 = 0, ni4 = 0;
-  const bool own = kMma ? warp < n_wm4 * cdiv(N4, 32)
-                        : tile_of(tid, cdiv(M4, 4), cdiv(N4, 8), mi4, ni4);
-  const int m4 = (warp % n_wm4) * 32, n4 = (warp / n_wm4) * 32;
+  const int n_wm4 = cdiv(M4, kKind == 2 ? 16 : 32);
+  int mi4 = 0, ni4 = 0, mc4 = 0, nc4 = 0;
+  bool own;
+  if constexpr (kKind == 0) {
+    own = tile_of(tid, cdiv(M4, 4), cdiv(N4, 8), mi4, ni4);
+  } else if constexpr (kKind == 2) {
+    cx_tile_of(warp, n_wm4, mc4, nc4);
+    own = warp < n_wm4 * cdiv(N4, 32) && mc4 < M4 && nc4 < N4;
+  } else {
+    own = warp < n_wm4 * cdiv(N4, kKind == 1 ? 32 : 16);
+  }
+  const int m4 = (warp % n_wm4) * 32;
+  const int n4 = (warp / n_wm4) * (kKind == 3 ? 16 : 32);
   double dacc[kMma ? 4 : 1][4][2] = {};
-  float facc[4][kMma ? 1 : 8] = {};
+  float facc[4][kKind == 0 ? 8 : 1] = {};
+  float2 cacc[kKind == 2 ? 4 : 1][4] = {};
+  double zacc[kKind == 3 ? 2 : 1][2][2][4] = {};
 
   for (int ch = 0; ch < n_ch; ++ch) {
     cp_async_wait_all();
@@ -602,12 +906,19 @@ pair_transfer_kernel(const T* __restrict__ env, const T* __restrict__ top,
     }
     const EPos xp{kc, p.kl, ch % G, m.nm, p.zn, p.sw};
     const T* B = sm + p.oB + (ch & 1) * p.szB;
-    if constexpr (kMma)
+    if constexpr (kMma) {
       dmma_product<4, 2>(E, p.ldE, xp, Ts, p.ldT, K1, M1, N1, X1, ro1, co1);
-    else if (G == 2)
-      simt_product<true>(E, p.ldE, xp, Ts, p.ldT, K1, M1, N1, X1, ro1, co1);
-    else
-      simt_product(E, p.ldE, xp, Ts, p.ldT, K1, M1, N1, X1, ro1, co1);
+    } else if constexpr (kKind == 0) {
+      if (G == 2)
+        simt_product<true>(E, p.ldE, xp, Ts, p.ldT, K1, M1, N1, X1, ro1, co1);
+      else
+        simt_product(E, p.ldE, xp, Ts, p.ldT, K1, M1, N1, X1, ro1, co1);
+    } else if constexpr (kKind == 2) {
+      // step 1 as Ts^T E (E's columns are step 1's rows in order)
+      cx_product(Ts, p.ldT, E, p.ldE, K1, N1, M1, X1, co1, ro1);
+    } else {
+      zmma_product<1, 1>(E, p.ldE, Ts, p.ldT, K1, M1, N1, X1, ro1, co1);
+    }
     __syncthreads();
     if (ch + 1 < n_ch && (ch + 1) % G == 0) {
       stage_env((ch + 1) / G);
@@ -624,13 +935,28 @@ pair_transfer_kernel(const T* __restrict__ env, const T* __restrict__ top,
       if (own)
         dmma_acc<4, 4>(dacc, X3 + q * p.ld3 + m4 + g, p.ld3,
                        B + q * p.ldB + n4 + g, p.ldB, K4);
-    } else {
+    } else if constexpr (kKind == 0) {
       simt_product(X1, p.ld1, ident, R1, p.ldR1, K2, M2, N2, X2, ro2, co2);
       __syncthreads();
       simt_product(R2, p.ldR2, ident, X2, p.ld2, K3, M3, N3, X3, ro3, co3);
       __syncthreads();
       if (own)
         simt_acc<8>(facc, X3 + mi4 * 4, p.ld3, B + ni4 * 8, p.ldB, K4);
+    } else if constexpr (kKind == 2) {
+      cx_product(X1, p.ld1, R1, p.ldR1, K2, M2, N2, X2, ro2, co2);
+      __syncthreads();
+      cx_product(R2, p.ldR2, X2, p.ld2, K3, M3, N3, X3, ro3, co3);
+      __syncthreads();
+      if (own) csimt_acc(cacc, X3 + mc4, p.ld3, B + nc4, p.ldB, K4);
+    } else {
+      zmma_product<1, 1>(X1, p.ld1, R1, p.ldR1, K2, M2, N2, X2, ro2, co2);
+      __syncthreads();
+      // step 3 as T2^T R2, as in f64
+      zmma_product<1, 1>(X2, p.ld2, R2, p.ldR2, K3, N3, M3, X3, co3, ro3);
+      __syncthreads();
+      if (own)
+        zmma_acc<2, 2, false>(zacc, X3 + q * p.ld3 + m4 + g, p.ld3,
+                              B + q * p.ldB + n4 + g, p.ldB, K4);
     }
   }
   if (!own) return;
@@ -655,7 +981,7 @@ pair_transfer_kernel(const T* __restrict__ env, const T* __restrict__ top,
         }
       }
     }
-  } else {
+  } else if constexpr (kKind == 0) {
     const int c0 = ni4 * 8;
     const bool vec = c0 + 8 <= N4 && (m.nC & 3) == 0;
 #pragma unroll
@@ -674,6 +1000,37 @@ pair_transfer_kernel(const T* __restrict__ env, const T* __restrict__ top,
           if (c0 + j < N4) d[j] = facc[i][j];
       }
     }
+  } else if constexpr (kKind == 2) {
+    const bool vec = nc4 + 4 <= N4 && (m.nC & 1) == 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = mc4 + i;
+      if (r >= rows) continue;
+      T* const d = o + int64_t(r) * m.nC + nc4;
+      if (vec) {
+        reinterpret_cast<float4*>(d)[0] = make_float4(
+            cacc[i][0].x, cacc[i][0].y, cacc[i][1].x, cacc[i][1].y);
+        reinterpret_cast<float4*>(d)[1] = make_float4(
+            cacc[i][2].x, cacc[i][2].y, cacc[i][3].x, cacc[i][3].y);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (nc4 + j < N4) d[j] = cacc[i][j];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int r = m4 + 16 * i + zrow(lane, v);
+          const int c = n4 + 8 * j + zcol(lane, v);
+          if (r < rows && c < N4)
+            o[int64_t(r) * m.nC + c] =
+                make_double2(zacc[i][j][0][v], zacc[i][j][1][v]);
+        }
   }
 }
 
@@ -719,45 +1076,67 @@ int64_t batch_items(const Meta& m) {
 }
 
 // Whether this code can run the plan: env groups of one or two chunks
-// (pairs of c' in f32), every operand's rows and the columns its product
-// reads fit its leading dim, the regions are aligned and disjoint (T1 and T3
-// may share one when no padding row of one lies under the other's values),
-// the tables and the total fit, and step 4's tiles fit the CTA. A plan that
+// (pairs of c' in f32; one chunk in step 1's row order for the complex
+// bodies), every operand's rows and the columns its product reads fit its
+// leading dim, the regions are aligned and disjoint (T1 and T3 may share
+// one when no padding row of one lies under the other's values), the
+// tables and the total fit, and step 4's tiles fit the CTA. A plan that
 // passes reads and writes only inside its own shared memory.
 template <typename T>
 bool check_plan(const Meta& m, const Plan& p) {
-  constexpr bool mma = sizeof(T) == 8;
-  constexpr int W = 16 / sizeof(T), kq = mma ? 4 : 1;
+  constexpr int kind = Body<T>::kind, kq = Body<T>::kq;
+  constexpr bool mma = kind == 1;
+  constexpr int W = 16 / sizeof(T);
   const int ta = p.ta, kc = p.kc;
   if (ta < 1 || ta > m.nA || kc < 1 || kc > m.nc) return false;
-  if (p.kl != kc && !(kc == 2 && p.kl == 4)) return false;
-  // pairs of c' in f32 stay inside an n block; f64 lanes step 8 kl / kc
-  if (p.kl != kc && !mma && m.nm % 2 != 0) return false;
-  if (p.zn < m.nm * p.kl || (mma && p.zn != m.nm * p.kl))
-    return false;
-  // the swap permutes rows within aligned groups of 8 = 4 m x 2 c'
-  if (p.sw != 0 && (p.sw != 1 || kc != 2 || m.nm % 4 != 0)) return false;
+  if (kind >= 2) {
+    if (p.kl != kc || p.zn != m.nm * kc || p.sw != 0) return false;
+  } else {
+    if (p.kl != kc && !(kc == 2 && p.kl == 4)) return false;
+    // pairs of c' in f32 stay inside an n block; f64 lanes step 8 kl / kc
+    if (p.kl != kc && !mma && m.nm % 2 != 0) return false;
+    if (p.zn < m.nm * p.kl || (mma && p.zn != m.nm * p.kl)) return false;
+    // the swap permutes rows within aligned groups of 8 = 4 m x 2 c'
+    if (p.sw != 0 && (p.sw != 1 || kc != 2 || m.nm % 4 != 0)) return false;
+  }
   auto kp = [&](int x) { return round_up(x, kq); };
-  // columns read: SIMT tiles of 4 (8 for bot), DMMA tiles of 32 and 16 (32)
-  auto wx = [&](int x) { return round_up(x, mma ? 32 : 4); };
-  auto wy = [&](int x, bool last) {
-    return round_up(x, mma ? (last ? 32 : 16) : (last ? 8 : 4));
-  };
   const int M1 = m.nn * kc * m.nm, N1 = m.nu * ta, M2 = m.nn * kc * ta,
             N2 = m.nd * m.nr, M3 = m.ne * m.nf, N3 = kc * ta * m.nr,
             M4 = ta * m.nr * m.nf;
   const int lds[] = {p.ldE, p.ldT, p.ldR1, p.ldR2, p.ld1, p.ld2, p.ld3,
                      p.ldB};
-  // f64 reads T2 as step 3's X (T2^T R2), f32 as its Y (R2^T T2)
-  const int need[] = {cdiv(wx(M1) / kc, m.nm) * p.zn, wy(N1, false),
-                      wy(N2, false), wx(M3), wx(M2),
-                      mma ? wx(N3) : wy(N3, false), wx(M4), wy(m.nC, true)};
+  int need[8];
+  if constexpr (kind <= 1) {
+    // columns read: SIMT tiles of 4 (8 for bot), DMMA tiles of 32 and 16
+    // (32); f64 reads T2 as step 3's X (T2^T R2), f32 as its Y (R2^T T2)
+    auto wx = [&](int x) { return round_up(x, mma ? 32 : 4); };
+    auto wy = [&](int x, bool last) {
+      return round_up(x, mma ? (last ? 32 : 16) : (last ? 8 : 4));
+    };
+    const int n[] = {cdiv(wx(M1) / kc, m.nm) * p.zn, wy(N1, false),
+                     wy(N2, false), wx(M3), wx(M2),
+                     mma ? wx(N3) : wy(N3, false), wx(M4), wy(m.nC, true)};
+    for (int i = 0; i < 8; ++i) need[i] = n[i];
+  } else if constexpr (kind == 2) {
+    // warp blocks of 16 (X) x 32 (Y); step 1 runs as Ts^T E
+    const int n[] = {round_up(M1, 32), round_up(N1, 16), round_up(N2, 32),
+                     round_up(M3, 16), round_up(M2, 16), round_up(N3, 32),
+                     round_up(M4, 16), round_up(m.nC, 32)};
+    for (int i = 0; i < 8; ++i) need[i] = n[i];
+  } else {
+    // MMA tiles of 16 (X) x 8 (Y), warp tiles of 32 x 16 in step 4; step 3
+    // runs as T2^T R2
+    const int n[] = {round_up(M1, 16), round_up(N1, 8), round_up(N2, 8),
+                     round_up(M3, 8), round_up(M2, 16), round_up(N3, 16),
+                     round_up(M4, 32), round_up(m.nC, 16)};
+    for (int i = 0; i < 8; ++i) need[i] = n[i];
+  }
   for (int i = 0; i < 8; ++i)
     if (lds[i] < need[i] || lds[i] % W != 0) return false;
   const int64_t x1 = int64_t(kp(m.nu * m.nm)) * p.ld1;
   const int64_t x3 = int64_t(kp(kc * m.ne)) * p.ld3;
   const bool shared13 = p.oX3 == p.oX1;
-  if (shared13 && mma && ((m.nu * m.nm) % kq != 0 || (kc * m.ne) % kq != 0))
+  if (shared13 && kq > 1 && ((m.nu * m.nm) % kq != 0 || (kc * m.ne) % kq != 0))
     return false;
   if (p.szE < int64_t(kp(m.na)) * p.ldE || p.szB < int64_t(kp(kc * m.ne)) * p.ldB)
     return false;
@@ -787,8 +1166,10 @@ bool check_plan(const Meta& m, const Plan& p) {
   if (p.oTab % 16 != 0 || p.oTab < end * int64_t(sizeof(T)) ||
       p.oTab + 4 * tab > p.smem || p.smem % 16 != 0 || p.smem > kSmemLimit)
     return false;
-  return mma ? cdiv(M4, 32) * cdiv(m.nC, 32) <= kWarps
-             : tiles(M4, 4, m.nC, 8) <= kThreads;
+  if constexpr (kind == 0) return tiles(M4, 4, m.nC, 8) <= kThreads;
+  if constexpr (kind == 1) return cdiv(M4, 32) * cdiv(m.nC, 32) <= kWarps;
+  if constexpr (kind == 2) return cdiv(M4, 16) * cdiv(m.nC, 32) <= kWarps;
+  return cdiv(M4, 32) * cdiv(m.nC, 16) <= kWarps;
 }
 
 int64_t gcd64(int64_t a, int64_t b) {
@@ -954,267 +1335,25 @@ int attributes(int64_t smem, int64_t* out) {
   return 0;
 }
 
-// ------------------------------------------------------ complex bodies --
-//
-// complex64 / complex128: the same transfer with no conjugate anywhere
-// (pair_transfer_plain's four einsums). A separate, simple body; the real
-// bodies above are untouched. What bounds it: operations, 4 real FMAs per
-// complex multiply-add (805 MFLOP an item at chi = 32, D = 8), on the FP32
-// CUDA cores for complex64 and the FP64 ones for complex128 (no tensor
-// cores take complex here; complex128 on DMMA is later work). Design: one
-// CTA owns an (item, tile of ta values of A) and walks c in chunks of kc
-// values. row1, row2 and the top tile are copied into shared memory once,
-// env and bot per chunk, each with the operand's own strides (the right
-// form's views and stride-0 broadcasts alike), zero-filled past the last c
-// or A. Per chunk the four products run as one loop nest each, every
-// operand in shared memory, each thread walking its outputs by the block
-// stride:
-//   step 1  X1[u][m][n][c'][A'] = sum_a  E[a][m][n][c'] Tt[a][u][A']
-//   step 2  X2[d][n][c'][A'][r] = sum_um X1 R1[u][m][d][r]
-//   step 3  X3[c'][e][A'][r][f] = sum_dn X2 R2[d][n][e][f]   (over X1)
-//   step 4  acc[A'][r][f][C]   += sum_c'e X3 B[c'][e][C]
-// The output tile stays in registers (at most kCxOut values a thread). ta
-// and kc come from kernels/pair_transfer.py:pair_transfer_plan, after the
-// sizes in the meta; cx_layout here recomputes the layout and refuses a
-// plan that does not match it or does not fit.
-// The launch bounds name one CTA an SM as the floor: without it ptxas kept
-// these bodies to 48-64 registers and spilled (89-114 registers, no spill,
-// with it).
-
-constexpr int kCxOut = 8;   // output values a thread keeps in registers
-
-struct CxPlan {
-  int ta, kc;
-  int64_t oR1, oR2, oT, oE, oB, oX1, oX2, oX3;   // region offsets (elements)
-  int64_t smem;                                  // bytes
-};
-
-bool cx_layout(const Meta& m, int ta, int kc, int elem, CxPlan& p) {
-  p.ta = ta;
-  p.kc = kc;
-  const int64_t x1 = int64_t(m.nu) * m.nm * m.nn * kc * ta;
-  const int64_t x3 = int64_t(kc) * m.ne * ta * m.nr * m.nf;
-  int64_t off = 0;
-  p.oR1 = off;
-  off += int64_t(m.nu) * m.nm * m.nd * m.nr;
-  p.oR2 = off;
-  off += int64_t(m.nd) * m.nn * m.ne * m.nf;
-  p.oT = off;
-  off += int64_t(m.na) * m.nu * ta;
-  p.oE = off;
-  off += int64_t(m.na) * m.nm * m.nn * kc;
-  p.oB = off;
-  off += int64_t(kc) * m.ne * m.nC;
-  p.oX1 = p.oX3 = off;   // X3 is written once step 2 has read X1
-  off += x1 > x3 ? x1 : x3;
-  p.oX2 = off;
-  off += int64_t(m.nd) * m.nn * kc * ta * m.nr;
-  p.smem = off * elem;
-  return ta >= 1 && kc >= 1 && ta <= m.nA && kc <= m.nc &&
-         p.smem <= kSmemLimit &&
-         int64_t(ta) * m.nr * m.nf * m.nC <= int64_t(kCxOut) * kThreads;
-}
-
-template <typename V>
-__global__ void __launch_bounds__(kThreads, 1)
-pair_transfer_cx_kernel(const V* __restrict__ env, const V* __restrict__ top,
-                        const V* __restrict__ row1, const V* __restrict__ row2,
-                        const V* __restrict__ bot, V* __restrict__ out,
-                        const Meta m, const CxPlan p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  V* const sm = reinterpret_cast<V*>(smem_raw);
-  V* const R1 = sm + p.oR1;
-  V* const R2 = sm + p.oR2;
-  V* const Tt = sm + p.oT;
-  V* const E = sm + p.oE;
-  V* const B = sm + p.oB;
-  V* const X1 = sm + p.oX1;
-  V* const X2 = sm + p.oX2;
-  V* const X3 = sm + p.oX3;
-  const int tid = threadIdx.x;
-  const int ta = p.ta, kc = p.kc;
-  const int na = m.na, nm = m.nm, nn = m.nn, nu = m.nu, nd = m.nd;
-  const int nr = m.nr, ne = m.ne, nf = m.nf, nC = m.nC;
-  const int n_tiles = cdiv(m.nA, ta);
-  const int64_t item = blockIdx.x / n_tiles;
-  const int A0 = static_cast<int>(blockIdx.x % n_tiles) * ta;
-  int64_t rem = item;
-  int64_t off_e = 0, off_t = 0, off_1 = 0, off_2 = 0, off_b = 0;
-  for (int k = kMaxBatch - 1; k >= 0; --k) {
-    const int64_t i = rem % m.nb[k];
-    rem /= m.nb[k];
-    off_e += i * m.se[k];
-    off_t += i * m.st[k];
-    off_1 += i * m.s1[k];
-    off_2 += i * m.s2[k];
-    off_b += i * m.sb[k];
-  }
-  const V* const e = env + off_e;
-  const V* const tp = top + off_t;
-  const V* const r1 = row1 + off_1;
-  const V* const r2 = row2 + off_2;
-  const V* const b = bot + off_b;
-  const int64_t* se = m.se + kMaxBatch;   // a, m, n, c
-  const int64_t* st = m.st + kMaxBatch;   // a, u, A
-  const int64_t* s1 = m.s1 + kMaxBatch;   // u, m, d, r
-  const int64_t* s2 = m.s2 + kMaxBatch;   // d, n, e, f
-  const int64_t* sb = m.sb + kMaxBatch;   // c, e, C
-  const V zero = cx_zero<V>();
-
-  for (int i = tid; i < nu * nm * nd * nr; i += kThreads) {
-    const int r = i % nr, q = i / nr, d = q % nd, q2 = q / nd;
-    const int mm = q2 % nm, u = q2 / nm;
-    R1[i] = r1[u * s1[0] + mm * s1[1] + d * s1[2] + r * s1[3]];
-  }
-  for (int i = tid; i < nd * nn * ne * nf; i += kThreads) {
-    const int f = i % nf, q = i / nf, ee = q % ne, q2 = q / ne;
-    const int n = q2 % nn, d = q2 / nn;
-    R2[i] = r2[d * s2[0] + n * s2[1] + ee * s2[2] + f * s2[3]];
-  }
-  for (int i = tid; i < na * nu * ta; i += kThreads) {
-    const int a_ = i % ta, q = i / ta, u = q % nu, a = q / nu;
-    Tt[i] = A0 + a_ < m.nA ? tp[a * st[0] + u * st[1] + (A0 + a_) * st[2]]
-                           : zero;
-  }
-  const int n_out = ta * nr * nf * nC;
-  V acc[kCxOut];
+// One warp: c <- x^T y + c on one 16 x 8 x 8 tile of complex128 (x [8][16],
+// y [8][8], c [16][8], row-major) through the complex128 body's fragment
+// loads, MMAs and fragment positions: the card test of the m16n8k8 layout.
+__global__ void zmma_tile_kernel(const double2* x, const double2* y,
+                                 double2* c) {
+  const int lane = threadIdx.x & 31;
+  double acc[1][1][2][4];
 #pragma unroll
-  for (int k = 0; k < kCxOut; ++k) acc[k] = zero;
-
-  for (int c0 = 0; c0 < m.nc; c0 += kc) {
-    const int cv = m.nc - c0;
-    __syncthreads();   // the previous chunk's E, B and X3 are consumed
-    for (int i = tid; i < na * nm * nn * kc; i += kThreads) {
-      const int c = i % kc, q = i / kc, n = q % nn, q2 = q / nn;
-      const int mm = q2 % nm, a = q2 / nm;
-      E[i] = c < cv ? e[a * se[0] + mm * se[1] + n * se[2] + (c0 + c) * se[3]]
-                    : zero;
-    }
-    for (int i = tid; i < kc * ne * nC; i += kThreads) {
-      const int C = i % nC, q = i / nC, ee = q % ne, c = q / ne;
-      B[i] = c < cv ? b[(c0 + c) * sb[0] + ee * sb[1] + C * sb[2]] : zero;
-    }
-    __syncthreads();
-    for (int i = tid; i < nu * nm * nn * kc * ta; i += kThreads) {   // 1
-      const int a_ = i % ta, q = i / ta, c = q % kc, q2 = q / kc;
-      const int n = q2 % nn, q3 = q2 / nn, mm = q3 % nm, u = q3 / nm;
-      const V* pe = E + (mm * nn + n) * kc + c;
-      const V* pt = Tt + u * ta + a_;
-      V s = zero;
-      for (int a = 0; a < na; ++a)
-        s = cx_fma(pe[a * nm * nn * kc], pt[a * nu * ta], s);
-      X1[i] = s;
-    }
-    __syncthreads();
-    for (int i = tid; i < nd * nn * kc * ta * nr; i += kThreads) {   // 2
-      const int r = i % nr, q = i / nr, a_ = q % ta, q2 = q / ta;
-      const int c = q2 % kc, q3 = q2 / kc, n = q3 % nn, d = q3 / nn;
-      const V* px = X1 + (n * kc + c) * ta + a_;
-      const V* pr = R1 + d * nr + r;
-      V s = zero;
-      for (int um = 0; um < nu * nm; ++um)
-        s = cx_fma(px[um * nn * kc * ta], pr[um * nd * nr], s);
-      X2[i] = s;
-    }
-    __syncthreads();
-    for (int i = tid; i < kc * ne * ta * nr * nf; i += kThreads) {   // 3
-      const int f = i % nf, q = i / nf, r = q % nr, q2 = q / nr;
-      const int a_ = q2 % ta, q3 = q2 / ta, ee = q3 % ne, c = q3 / ne;
-      const V* px = X2 + (c * ta + a_) * nr + r;
-      const V* pr = R2 + ee * nf + f;
-      V s = zero;
-      for (int dn = 0; dn < nd * nn; ++dn)
-        s = cx_fma(px[dn * kc * ta * nr], pr[dn * ne * nf], s);
-      X3[i] = s;
-    }
-    __syncthreads();
+  for (int v = 0; v < 4; ++v) {
+    const double2 cv = c[zrow(lane, v) * 8 + zcol(lane, v)];
+    acc[0][0][0][v] = cv.x;
+    acc[0][0][1][v] = cv.y;
+  }
+  zmma_acc<1, 1>(acc, x + (lane & 3) * 16 + (lane >> 2), 16,
+                 y + (lane & 3) * 8 + (lane >> 2), 8, 8);
 #pragma unroll
-    for (int k = 0; k < kCxOut; ++k) {                                // 4
-      const int o = tid + k * kThreads;
-      if (o < n_out) {
-        const int C = o % nC, q = o / nC;   // q = (A' nr + r) nf + f
-        const V* px = X3 + q;
-        const V* pb = B + C;
-        V s = acc[k];
-        for (int ce = 0; ce < kc * ne; ++ce)
-          s = cx_fma(px[ce * ta * nr * nf], pb[ce * nC], s);
-        acc[k] = s;
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kCxOut; ++k) {   // out[item, A0 + A', r, f, C]
-    const int o = tid + k * kThreads;
-    if (o < n_out) {
-      const int a_ = o / (nr * nf * nC);
-      if (A0 + a_ < m.nA)
-        out[(item * m.nA + A0) * nr * nf * nC + o] = acc[k];
-    }
-  }
-}
-
-// meta: sizes and strides (kMetaInts values), then the plan: ta, kc and
-// the shared bytes the Python plan computed for them.
-template <typename R>
-int launch_cx(const void* env, const void* top, const void* row1,
-              const void* row2, const void* bot, void* out,
-              const int64_t* meta, cudaStream_t stream) {
-  using V = typename CxOf<R>::type;
-  const Meta m = unpack(meta);
-  if (batch_items(m) == 0 || m.nA == 0 || m.nr == 0 || m.nf == 0 ||
-      m.nC == 0)
-    return static_cast<int>(cudaSuccess);
-  const int64_t* plan = meta + kMetaInts;
-  CxPlan p;
-  if (plan[0] < 1 || plan[1] < 1 || plan[0] > m.nA || plan[1] > m.nc ||
-      !cx_layout(m, static_cast<int>(plan[0]), static_cast<int>(plan[1]),
-                 sizeof(V), p) ||
-      p.smem != plan[2])
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t ctas = batch_items(m) * cdiv(m.nA, p.ta);
-  if (ctas >= (int64_t(1) << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 0 || dev >= kMaxDevices)
-    return static_cast<int>(cudaErrorInvalidDevice);
-  static bool done[kMaxDevices] = {};
-  if (!done[dev]) {
-    err = cudaFuncSetAttribute(pair_transfer_cx_kernel<V>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kSmemLimit));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    done[dev] = true;
-  }
-  pair_transfer_cx_kernel<V><<<static_cast<unsigned>(ctas), kThreads,
-                               static_cast<size_t>(p.smem), stream>>>(
-      static_cast<const V*>(env), static_cast<const V*>(top),
-      static_cast<const V*>(row1), static_cast<const V*>(row2),
-      static_cast<const V*>(bot), static_cast<V*>(out), m, p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// What the compiled complex body reaches at a plan's shared bytes (as
-// attributes() for the real ones).
-template <typename R>
-int cx_attributes(int64_t smem, int64_t* out) {
-  using V = typename CxOf<R>::type;
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_transfer_cx_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemLimit));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, pair_transfer_cx_kernel<V>);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &ctas, pair_transfer_cx_kernel<V>, kThreads, static_cast<size_t>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int64_t>(attr.localSizeBytes);
-  out[2] = ctas;
-  return 0;
+  for (int v = 0; v < 4; ++v)
+    c[zrow(lane, v) * 8 + zcol(lane, v)] =
+        make_double2(acc[0][0][0][v], acc[0][0][1][v]);
 }
 
 }  // namespace
@@ -1236,19 +1375,34 @@ int pair_transfer_f64(const double* env, const double* top,
                         static_cast<cudaStream_t>(stream));
 }
 
-// complex64 / complex128 (the complex body; meta as above plus its plan)
+// complex64 / complex128 (interleaved (re, im) elements; meta as above)
 int pair_transfer_c64(const void* env, const void* top, const void* row1,
                       const void* row2, const void* bot, void* out,
                       const int64_t* meta, void* stream) {
-  return launch_cx<float>(env, top, row1, row2, bot, out, meta,
-                          static_cast<cudaStream_t>(stream));
+  using V = float2;
+  return launch<V>(static_cast<const V*>(env), static_cast<const V*>(top),
+                   static_cast<const V*>(row1), static_cast<const V*>(row2),
+                   static_cast<const V*>(bot), static_cast<V*>(out), meta,
+                   static_cast<cudaStream_t>(stream));
 }
 
 int pair_transfer_c128(const void* env, const void* top, const void* row1,
                        const void* row2, const void* bot, void* out,
                        const int64_t* meta, void* stream) {
-  return launch_cx<double>(env, top, row1, row2, bot, out, meta,
-                           static_cast<cudaStream_t>(stream));
+  using V = double2;
+  return launch<V>(static_cast<const V*>(env), static_cast<const V*>(top),
+                   static_cast<const V*>(row1), static_cast<const V*>(row2),
+                   static_cast<const V*>(bot), static_cast<V*>(out), meta,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// The one-tile check of the complex128 MMA fragments (zmma_tile_kernel).
+int pair_transfer_zmma_tile(const void* x, const void* y, void* c,
+                            void* stream) {
+  zmma_tile_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double2*>(x), static_cast<const double2*>(y),
+      static_cast<double2*>(c));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The compiled kernel of one dtype at a plan's shared bytes: out[0..2] =
@@ -1259,11 +1413,11 @@ int pair_transfer_attributes(int elem_bytes, int64_t smem_bytes,
                          : attributes<float>(smem_bytes, out);
 }
 
-// The same for the complex body: elem_bytes 8 (complex64) or 16.
+// The same for the complex bodies: elem_bytes 8 (complex64) or 16.
 int pair_transfer_cx_attributes(int elem_bytes, int64_t smem_bytes,
                                 int64_t* out) {
-  return elem_bytes == 16 ? cx_attributes<double>(smem_bytes, out)
-                          : cx_attributes<float>(smem_bytes, out);
+  return elem_bytes == 16 ? attributes<double2>(smem_bytes, out)
+                          : attributes<float2>(smem_bytes, out);
 }
 
 }  // extern "C"

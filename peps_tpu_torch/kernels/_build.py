@@ -64,6 +64,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pair_transfer_cx_attributes.argtypes = [ctypes.c_int, ctypes.c_int64,
                                                 ptr]
     lib.pair_transfer_cx_attributes.restype = ctypes.c_int
+    lib.pair_transfer_zmma_tile.argtypes = [ptr, ptr, ptr, ptr]
+    lib.pair_transfer_zmma_tile.restype = ctypes.c_int
     for name in ("centered_o_f32", "centered_o_f64", "centered_o_c64",
                  "centered_o_c128"):
         fn = getattr(lib, name)

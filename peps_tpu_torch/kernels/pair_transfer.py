@@ -14,8 +14,10 @@ merging); a broadcast operand is read with batch stride 0, never copied.
 
 On a CPU tensor :func:`pair_transfer` runs the plain version. On a CUDA
 tensor it launches the hand-written kernel (``csrc/pair_transfer.cu``: f64
-on the DMMA tensor cores, f32 on the FP32 CUDA cores at two CTAs an SM,
-complex64 and complex128 on a separate, simple complex body) or raises;
+on the DMMA tensor cores (m8n8k4), f32 on the FP32 CUDA cores at two CTAs
+an SM, complex64 on the FP32 CUDA cores in 4 x 4 complex register tiles,
+complex128 on the DMMA tensor cores (m16n8k8, four real MMAs a complex
+tile product)) or raises;
 there is no fallback. :func:`pair_transfer_plan` is the kernel's
 launch plan, in Python so that the CPU tests can check it; the kernel
 checks the plan it is given and refuses one it cannot run. The launch meta
@@ -29,9 +31,8 @@ import math
 
 import torch
 
-from peps_tpu_torch.kernels.col_transfer import (COMPLEX, CX_OUT_PER_THREAD,
-                                                MAX_BATCH, _merge_batch,
-                                                shrink_to_fit)
+from peps_tpu_torch.kernels.col_transfer import (COMPLEX, MAX_BATCH,
+                                                _merge_batch, shrink_to_fit)
 
 # trailing (non-batch) dims of env, top, row1, row2, bot
 _NDIMS = (4, 3, 4, 4, 3)
@@ -45,12 +46,17 @@ SMEM_PER_SM = 233472               # 228 KB an SM holds
 SMEM_RESERVED_PER_CTA = 1024       # the runtime's share of each CTA
 SMEM_TWO_CTAS = SMEM_PER_SM // 2 - SMEM_RESERVED_PER_CTA
 A_TILE, C_CHUNK = 4, 2             # the largest tiles the plan takes
+CX_C_CHUNK = 4                     # ... and the complex bodies' c chunk
 ENTRIES = {torch.float32: "pair_transfer_f32",
            torch.float64: "pair_transfer_f64",
            torch.complex64: "pair_transfer_c64",
            torch.complex128: "pair_transfer_c128"}
-# the complex body's plan fields, in the order it reads them after the meta
-CX_PLAN_KEYS = ("ta", "kc", "smem_bytes")
+# per dtype: the body's short name, its element bytes, the multiple K is
+# padded to, and the name the plan reports
+BODIES = {torch.float32: ("f32", 4, 1, "simt_fma_f32"),
+          torch.float64: ("f64", 8, 4, "dmma_m8n8k4_f64"),
+          torch.complex64: ("c64", 8, 1, "simt_cx4x4_c64"),
+          torch.complex128: ("c128", 16, 8, "zmma_m16n8k8_c128")}
 META_INTS = MAX_BATCH + 3 * (MAX_BATCH + 4) + 2 * (MAX_BATCH + 3) + 11
 # the kernel's plan fields, in the order it reads them after the meta
 PLAN_KEYS = ("ta", "kc", "kl", "zn", "sw", "ldE", "ldT", "ldR1", "ldR2",
@@ -80,17 +86,44 @@ def _ld(need, mod, rem):
     return need + (rem - need) % mod
 
 
-def _step4_fits(ta, nr, nf, nc_, mma):
-    """Whether step 4's output tile (ta nr nf x nC) fits one tile per thread
-    (f32, 4 x 8 each, laid out as the kernel's tile_of) or one 32 x 32 tile
-    per warp (f64)."""
+def _step4_fits(ta, nr, nf, nc_, body):
+    """Whether step 4's output tile (ta nr nf x nC) fits the CTA as the
+    kernel lays it out: f32, one 4 x 8 tile per thread (tile_of); f64, one
+    32 x 32 tile per warp; complex64, one 4 x 4 tile per thread in warp
+    blocks of 16 x 32; complex128, one 32 x 16 tile per warp."""
     m4 = ta * nr * nf
-    if mma:
-        return _cdiv(m4, 32) * _cdiv(nc_, 32) <= WARPS
-    return _up(_cdiv(m4, 4), 8) * _up(_cdiv(nc_, 8), 4) <= THREADS
+    if body == "f32":
+        return _up(_cdiv(m4, 4), 8) * _up(_cdiv(nc_, 8), 4) <= THREADS
+    rows, cols = {"f64": (32, 32), "c64": (16, 32), "c128": (32, 16)}[body]
+    return _cdiv(m4, rows) * _cdiv(nc_, cols) <= WARPS
 
 
-def _layout(dims, ta, kc, mma):
+def _complex_lds(dims, ta, kc, body):
+    """The complex bodies' leading dims (ldE, ldT, ldR1, ldR2, ld1, ld2, ld3,
+    ldB) in elements: each covers the columns its product reads. complex64
+    reads X operands in warp blocks of 16 columns and Y operands in blocks
+    of 32, step 1 as Ts^T E; any even leading dim keeps its 16-byte loads
+    aligned, and T1's, T2's and T3's are 2 mod 32 elements, which at chi =
+    32, D = 8 spreads the 16-byte scatter stores of steps 1-3 over twice
+    as many bank groups as 0 mod 32. complex128 reads X in MMA tiles of 16
+    and Y in tiles of 8 (32
+    and 16 in step 4), step 3 as T2^T R2; a leading dim of 2 mod 8 elements
+    (32 mod 128 bytes, as f64's 4 mod 16 doubles) puts the 8 lanes of a
+    quarter-warp's 16-byte fragment loads (row lane & 3, column lane >> 2)
+    on 8 distinct bank groups."""
+    na, nm, nn, nc, nu, nA, nd, nr, ne, nf, nC = dims
+    m1, n1, m2, n2 = nn * kc * nm, nu * ta, nn * kc * ta, nd * nr
+    m3, n3, m4 = ne * nf, kc * ta * nr, ta * nr * nf
+    if body == "c64":
+        return (_up(m1, 32), _up(n1, 16), _up(n2, 32), _up(m3, 16),
+                _ld(_up(m2, 16), 32, 2), _ld(_up(n3, 32), 32, 2),
+                _ld(_up(m4, 16), 32, 2), _up(nC, 32))
+    need = (_up(m1, 16), _up(n1, 8), _up(n2, 8), _up(m3, 8), _up(m2, 16),
+            _up(n3, 16), _up(m4, 32), _up(nC, 16))
+    return tuple(_ld(x, 8, 2) for x in need)
+
+
+def _layout(dims, ta, kc, dtype):
     """Shared-memory layout for A tile ta and c chunk kc (elements, the
     table offset and total in bytes). env is copied after step 1 into one
     buffer, kl = 4 values of c at a time when kc = 2 (16 bytes a copy in
@@ -104,14 +137,19 @@ def _layout(dims, ta, kc, mma):
     lane & 3) hit 32 distinct banks, and K is padded to 4. f32: T1's and
     T2's leading dims are 4 mod 8 floats and T3's 8 mod 32: at chi = 32,
     D = 8 every quarter-warp's 16-byte store in steps 1-3 then lands on 8
-    distinct bank groups."""
+    distinct bank groups. The complex bodies copy env one chunk at a time
+    in step 1's row order (kl = kc, no swap), pad K to 8 in complex128, and
+    take their leading dims from :func:`_complex_lds`."""
     na, nm, nn, nc, nu, nA, nd, nr, ne, nf, nC = dims
-    item = 8 if mma else 4
+    body, item, kq, _ = BODIES[dtype]
     w = 16 // item
-    kq = 4 if mma else 1
-    kl = 4 if kc == 2 and (mma or nm % 2 == 0) else kc
-    zn = nm * kl + (4 if kl != kc and not mma else 0)
-    sw = int(mma and kl != kc and nm % 4 == 0)
+    mma = body == "f64"
+    if body in ("c64", "c128"):
+        kl, zn, sw = kc, nm * kc, 0
+    else:
+        kl = 4 if kc == 2 and (mma or nm % 2 == 0) else kc
+        zn = nm * kl + (4 if kl != kc and not mma else 0)
+        sw = int(mma and kl != kc and nm % 4 == 0)
 
     def kp(x):
         return _up(x, kq)
@@ -125,19 +163,23 @@ def _layout(dims, ta, kc, mma):
     def lead(need, mod=16, rem=4):
         return _ld(need, 16, 4) if mma else _ld(need, mod, rem)
 
-    need_e = _cdiv(wx(nn * kc * nm) // kc, nm) * zn
-    lay = {"ta": ta, "kc": kc, "kl": kl, "zn": zn, "sw": sw,
-           "ldE": _ld(need_e, 16, 2) if sw else lead(need_e, 4, 0),
-           "ldT": lead(wy(nu * ta), 4, 0),
-           "ldR1": lead(wy(nd * nr), 4, 0),
-           "ldR2": lead(wx(ne * nf), 4, 0),
-           "ld1": lead(wx(nn * kc * ta), 8, 4),
-           "ld2": lead((wx if mma else wy)(kc * ta * nr), 8, 4),
-           "ld3": lead(wx(ta * nr * nf), 32, 8),
-           "ldB": lead(wy(nC, last=True), 4, 0)}
+    lay = {"ta": ta, "kc": kc, "kl": kl, "zn": zn, "sw": sw}
+    if body in ("c64", "c128"):
+        lay.update(zip(("ldE", "ldT", "ldR1", "ldR2", "ld1", "ld2", "ld3",
+                        "ldB"), _complex_lds(dims, ta, kc, body)))
+    else:
+        need_e = _cdiv(wx(nn * kc * nm) // kc, nm) * zn
+        lay.update({"ldE": _ld(need_e, 16, 2) if sw else lead(need_e, 4, 0),
+                    "ldT": lead(wy(nu * ta), 4, 0),
+                    "ldR1": lead(wy(nd * nr), 4, 0),
+                    "ldR2": lead(wx(ne * nf), 4, 0),
+                    "ld1": lead(wx(nn * kc * ta), 8, 4),
+                    "ld2": lead((wx if mma else wy)(kc * ta * nr), 8, 4),
+                    "ld3": lead(wx(ta * nr * nf), 32, 8),
+                    "ldB": lead(wy(nC, last=True), 4, 0)})
     x1 = kp(nu * nm) * lay["ld1"]
     x3 = kp(kc * ne) * lay["ld3"]
-    share13 = not mma or ((nu * nm) % kq == 0 and (kc * ne) % kq == 0)
+    share13 = kq == 1 or ((nu * nm) % kq == 0 and (kc * ne) % kq == 0)
     lay["szE"] = _up(kp(na) * lay["ldE"], w)
     lay["szB"] = _up(kp(kc * ne) * lay["ldB"], w)
     sizes = (("oR1", kp(nu * nm) * lay["ldR1"]),
@@ -172,7 +214,7 @@ def pair_transfer_plan(dims, dtype, items=1):
     kernel does not take, ValueError for empty sizes and RuntimeError when
     no plan fits shared memory. ``smem_ctas_per_sm`` is what shared memory
     allows (the card-side diagnostic reports what the compiled kernel
-    reaches). A complex dtype takes the complex body's plan
+    reaches). A complex dtype takes the complex bodies' plan
     (:func:`_complex_plan`)."""
     entry_name(dtype)
     dims = tuple(int(x) for x in dims)
@@ -181,14 +223,15 @@ def pair_transfer_plan(dims, dtype, items=1):
                          f"{len(DIM_NAMES)} sizes >= 1 {DIM_NAMES}")
     if dtype in COMPLEX:
         return _complex_plan(dims, dtype, items)
-    mma = dtype == torch.float64
+    body = BODIES[dtype][0]
+    mma = body == "f64"
     na, nm, nn, nc, nu, nA, nd, nr, ne, nf, nC = dims
     budgets = (SMEM_PER_BLOCK,) if mma else (SMEM_TWO_CTAS, SMEM_PER_BLOCK)
     for budget in budgets:
         ta, kc = min(nA, A_TILE), min(nc, C_CHUNK)
         while True:
-            fits = _step4_fits(ta, nr, nf, nC, mma)
-            lay = _layout(dims, ta, kc, mma)
+            fits = _step4_fits(ta, nr, nf, nC, body)
+            lay = _layout(dims, ta, kc, dtype)
             if fits and lay["smem_bytes"] <= budget:
                 return _finish(lay, dims, dtype, items)
             if not fits and ta > 1:
@@ -213,48 +256,23 @@ def entry_name(dtype) -> str:
     return ENTRIES[dtype]
 
 
-def complex_smem_bytes(dims, ta, kc, item):
-    """Shared bytes of the complex body at A tile ta and c chunk kc: row1,
-    row2, the top tile, env and bot chunks, then the intermediates (step
-    3's over step 1's)."""
-    na, nm, nn, nc, nu, nA, nd, nr, ne, nf, nC = dims
-    x1 = nu * nm * nn * kc * ta
-    x3 = kc * ne * ta * nr * nf
-    return item * (nu * nm * nd * nr + nd * nn * ne * nf + na * nu * ta
-                   + na * nm * nn * kc + kc * ne * nC + max(x1, x3)
-                   + nd * nn * kc * ta * nr)
-
-
 def _complex_plan(dims, dtype, items):
-    """The complex body's plan: one CTA of 256 threads per (item, tile of
-    ``ta`` values of A), c in chunks of ``kc``; the largest tiles (ta <= 4,
-    kc <= 2) whose output tile fits the threads' registers (at most 8
-    values a thread) and whose shared memory fits 227 KB, with elements of
-    8 (complex64) or 16 bytes (complex128). RuntimeError when none fits."""
+    """The complex bodies' plan: the largest A tile (ta <= 4) whose step 4
+    tile fits the CTA, then the largest c chunk (kc <= 4) whose layout fits
+    227 KB (one CTA an SM), halving ta last (col_transfer.shrink_to_fit).
+    RuntimeError when none fits."""
     na, nm, nn, nc, nu, nA, nd, nr, ne, nf, nC = dims
-    item = 8 if dtype == torch.complex64 else 16
+    body = BODIES[dtype][0]
     fit = shrink_to_fit(
-        min(nA, A_TILE), min(nc, C_CHUNK),
-        lambda ta: ta * nr * nf * nC <= CX_OUT_PER_THREAD * THREADS,
-        lambda ta, kc: complex_smem_bytes(dims, ta, kc, item))
+        min(nA, A_TILE), min(nc, CX_C_CHUNK),
+        lambda ta: _step4_fits(ta, nr, nf, nC, body),
+        lambda ta, kc: _layout(dims, ta, kc, dtype)["smem_bytes"])
     if fit is None:
-        raise RuntimeError(
-            f"no pair_transfer plan fits {dtype} sizes "
-            f"{dict(zip(DIM_NAMES, dims))} in {SMEM_PER_BLOCK} bytes of "
-            f"shared memory and {CX_OUT_PER_THREAD} outputs a thread")
-    ta, kc, smem = fit
-    a_tiles = _cdiv(nA, ta)
-    ctas = items * a_tiles
-    if ctas >= 2 ** 31:
-        raise ValueError(f"pair_transfer grid of {ctas} CTAs exceeds "
-                         f"2^31 - 1")
-    return {"ta": ta, "kc": kc, "smem_bytes": smem, "dtype": dtype,
-            "dims": dims, "items": items,
-            "body": f"simt_complex_{'c64' if item == 8 else 'c128'}",
-            "a_tiles": a_tiles, "c_chunks": _cdiv(nc, kc), "ctas": ctas,
-            "outputs_per_thread": _cdiv(ta * nr * nf * nC, THREADS),
-            "smem_ctas_per_sm": min(SMEM_PER_SM // (
-                smem + SMEM_RESERVED_PER_CTA), 2048 // THREADS)}
+        raise RuntimeError(f"no pair_transfer plan fits {dtype} sizes "
+                           f"{dict(zip(DIM_NAMES, dims))} in "
+                           f"{SMEM_PER_BLOCK} bytes of shared memory")
+    ta, kc, _ = fit
+    return _finish(_layout(dims, ta, kc, dtype), dims, dtype, items)
 
 
 def _finish(lay, dims, dtype, items):
@@ -264,12 +282,12 @@ def _finish(lay, dims, dtype, items):
     if ctas >= 2 ** 31:
         raise ValueError(f"pair_transfer grid of {ctas} CTAs exceeds "
                          f"2^31 - 1")
-    mma = dtype == torch.float64
     smem_ctas = SMEM_PER_SM // (lay["smem_bytes"] + SMEM_RESERVED_PER_CTA)
     return {**lay, "dtype": dtype, "dims": dims, "items": items,
-            "body": "dmma_m8n8k4_f64" if mma else "simt_fma_f32",
-            "a_tiles": a_tiles, "c_chunks": _cdiv(nc, lay["kc"]),
-            "ctas": ctas, "smem_ctas_per_sm": min(smem_ctas, 1 if mma else 2)}
+            "body": BODIES[dtype][3], "a_tiles": a_tiles,
+            "c_chunks": _cdiv(nc, lay["kc"]), "ctas": ctas,
+            "smem_ctas_per_sm": min(smem_ctas,
+                                    2 if dtype == torch.float32 else 1)}
 
 
 def _meta(ops, batch):
@@ -290,8 +308,7 @@ def _meta(ops, batch):
     items = math.prod(batch)
     if items * dims[5] * dims[7] * dims[9] * dims[10] > 0:
         plan = pair_transfer_plan(dims, ops[0].dtype, items)
-        keys = CX_PLAN_KEYS if ops[0].dtype in COMPLEX else PLAN_KEYS
-        meta += [plan[k] for k in keys]
+        meta += [plan[k] for k in PLAN_KEYS]
     return meta
 
 

@@ -15,15 +15,18 @@ script stops if the text is not there), built alone into
   no_scatter_stores  steps 1-3 compute their products but store nothing;
   no_fragment_loads  the products' k-loops keep their first fragments in
                      registers instead of loading each k's from shared
-                     memory (the FMAs or MMAs and the loop remain);
+                     memory (the FMAs or MMAs and the loop remain; in
+                     complex128 step 4, one k-step a chunk, keeps its
+                     loads);
   no_inner_barriers  the three barriers between a chunk's products gone.
 
 Every variant but the first computes a wrong result (each line says
 whether it matched the plain version); the differences in time are what
 each part costs. Cases: chip_smoke.k3_cases' env step and diagonal block,
-f32 and f64. One JSON line per (case, dtype) with each variant's ms (the
-mean of two turns of --reps launches); the first line is the card's name
-and power limit.
+f32, f64, complex64 and complex128 (at the complex128 block the plain
+chain runs on chip_smoke.K3_SUBSET_CHAINS chains' items). One JSON line
+per (case, dtype) with each variant's ms (the mean of two turns of --reps
+launches); the first line is the card's name and power limit.
 """
 import argparse
 import json
@@ -50,7 +53,12 @@ VARIANTS = {
          "      simt_store<4, 4>(acc, mi * 4, ni * 4, M, N, dst, ro, co);"),
         ("        const int o = r + co[n];\n",
          "        const int o = r + co[n];\n"
-         "        if (acc[i][j][0] != 12345.0) continue;\n")],
+         "        if (acc[i][j][0] != 12345.0) continue;\n"),
+        ("    cx_store(acc, m0, n0, M, N, dst, ro, co);",
+         "    if (acc[0][0].x == 12345.f)\n"
+         "      cx_store(acc, m0, n0, M, N, dst, ro, co);"),
+        ("          if (m < M && n < N)\n",
+         "          if (m < M && n < N && acc[i][j][0][v] == 12345.0)\n")],
     "no_fragment_loads": [
         ("      load_x<kPairs>(x1, x + ldx, xs);\n"
          "      load_frag<TN>(y1, y + ldy);",
@@ -65,7 +73,23 @@ VARIANTS = {
         ("    if (k + 8 < K) {\n#pragma unroll\n"
          "      for (int i = 0; i < WM; ++i) a0[i] = x[xt * i];\n"
          "#pragma unroll\n"
-         "      for (int j = 0; j < WN; ++j) b0[j] = y[8 * j];\n    }\n", "")],
+         "      for (int j = 0; j < WN; ++j) b0[j] = y[8 * j];\n    }\n", ""),
+        ("      load_cx4(x1, x + ldx);\n      load_cx4(y1, y + ldy);",
+         "      for (int i = 0; i < 4; ++i) x1[i] = x0[i];\n"
+         "      for (int j = 0; j < 4; ++j)\n"
+         "        y1[j] = make_float2(0.5f * y0[j].x, y0[j].y);"),
+        ("    if (k + 2 < K) {\n      load_cx4(x0, x);\n"
+         "      load_cx4(y0, y);\n    }\n", ""),
+        ("    if (two) zmma_frags<WM, WN>(a1, b1, x + sx, ldx, y + sy, ldy);",
+         "    if (two) {\n"
+         "      for (int i = 0; i < WM; ++i)\n"
+         "        for (int v = 0; v < 4; ++v) a1[i][v] = a0[i][v];\n"
+         "      for (int j = 0; j < WN; ++j)\n"
+         "        for (int v = 0; v < 2; ++v)\n"
+         "          b1[j][v] = make_double2(0.5 * b0[j][v].x, b0[j][v].y);\n"
+         "    }"),
+        ("    if (k + 16 < K) zmma_frags<WM, WN>(a0, b0, x, ldx, y, ldy);\n",
+         "")],
     "no_inner_barriers": [
         ("co2);\n      __syncthreads();", "co2);"),
         ("co3);\n      __syncthreads();", "co3);"),
@@ -111,13 +135,17 @@ def main():
         path.write_text(variant_source(src, subs))
         libs[name] = bench.build_other(path)
     gen = torch.Generator(device=device).manual_seed(1234)
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (torch.float32, torch.float64, torch.complex64,
+                  torch.complex128):
         tol = cs.TOL[str(dtype).split(".")[1]]
         cases = {c[0]: c for c in cs.k3_cases(dtype, device, gen)}
         for case in ("env_step", "diag_block"):
             _, form, *ops = cases[case]
             views = cs.k3_views(form, ops)
-            ref = k3.pair_transfer_plain(*views)
+            sub = views
+            if "block" in case and dtype == torch.complex128:
+                sub = cs.k3_subset(views)
+            ref = k3.pair_transfer_plain(*sub)
             rec = {"case": case, "dtype": str(dtype), "ms": {},
                    "matches_plain": {}}
             runs = {}
@@ -128,6 +156,8 @@ def main():
                 runs[name] = run
                 got = run()
                 torch.cuda.synchronize()
+                if sub is not views:
+                    got = got[:cs.K3_SUBSET_CHAINS]
                 rec["matches_plain"][name] = cs.max_err(got, ref)[1] <= tol
                 del got
             del ref

@@ -227,11 +227,13 @@ def test_complex_plans_fit_the_main_path(dtype):
         assert p["ta"] * dims[6] * dims[7] <= 8 * 256
         assert p["ctas"] == 3584 * -(-dims[4] // p["ta"])
     p = k3.pair_transfer_plan(K3_MAIN, dtype, 3136)
-    assert p["body"].startswith("simt_complex")
-    assert p["smem_bytes"] == k3.complex_smem_bytes(K3_MAIN, p["ta"],
-                                                    p["kc"], item)
+    assert p["body"] == ("simt_cx4x4_c64" if item == 8
+                         else "zmma_m16n8k8_c128")
+    assert p["smem_bytes"] == k3._layout(K3_MAIN, p["ta"], p["kc"],
+                                         dtype)["smem_bytes"]
     assert p["smem_bytes"] <= k3.SMEM_PER_BLOCK
-    assert p["outputs_per_thread"] <= k3.CX_OUT_PER_THREAD
+    # step 4's tile in registers: 16 complex outputs a thread
+    assert p["ta"] * 8 * 8 * 32 <= 16 * k3.THREADS and p["ta"] >= 2
     p = k2.centered_o_plan(32, 64, 8 ** 4, 2, dtype)
     assert p["col_chunks"] * p["cols_per_cta"] >= 8 ** 4
     assert p["smem_bytes"] == 8 * 2 * 32 * item
@@ -273,7 +275,7 @@ def test_complex_meta_counts_complex_elements():
            torch.zeros(2, 5, 2, 5, dtype=torch.complex64))
     _, meta = k3.launch_meta(*ops)
     plan = k3.pair_transfer_plan(k3.pair_dims(*ops), torch.complex64, 2)
-    assert list(meta)[k3.META_INTS:] == [plan[k] for k in k3.CX_PLAN_KEYS]
+    assert list(meta)[k3.META_INTS:] == [plan[k] for k in k3.PLAN_KEYS]
     assert list(meta)[4:12] == [0, 0, 0] + list(ops[0].stride())
 
 

@@ -470,6 +470,9 @@ def test_vmc_optimize_minsr_and_adam_on_the_card(dev, algo):
 
 def pair_operands(dev, dtype, gen, case):
     """K3 operands: "small" (chi 5, D 2, c 7: partial chunks and A tiles),
+    "ragged" (chi 7, D 3: partial A tiles and c chunks of the complex
+    bodies, row2 shared by the batch), "bcast" (stride-0 broadcasts: env,
+    top and bot shared by 3 candidates on row1, row2 by the whole batch),
     "odd" (chi 6, D 3, c 5: no size a multiple of the f64 body's 8 x 8 x 4
     MMA tiles, so its zero-filled padding is read), or the main path's
     shapes at 8x8, D=8, chi=32, 32 chains: "env_step" (the BTen2 scan step
@@ -484,6 +487,14 @@ def pair_operands(dev, dtype, gen, case):
         chi, D, c = (5, 2, 7) if case == "small" else (6, 3, 5)
         return (r(3, chi, D, D, c), r(3, chi, D, chi), r(D, D, D, D),
                 r(3, D, D, D, D), r(c, D, c))
+    if case == "ragged":      # chi 7, D 3: partial A tiles and c chunks
+        chi, D = 7, 3
+        return (r(2, chi, D, D, chi), r(2, chi, D, chi), r(2, D, D, D, D),
+                r(D, D, D, D), r(2, chi, D, chi))
+    if case == "bcast":       # env, top, bot over the candidates, row2 over all
+        chi, D, nb, d = 12, 3, 4, 3
+        return (r(nb, 1, chi, D, D, chi), r(nb, 1, chi, D, chi),
+                r(nb, d, D, D, D, D), r(D, D, D, D), r(nb, 1, chi, D, chi))
     chi, D, nc, pairs, lx, d = 32, 8, 32, 7, 8, 2
     if case == "env_step":
         return (r(nc, pairs, chi, D, D, chi), r(nc, pairs, chi, D, chi),
@@ -536,10 +547,11 @@ def test_pair_transfer_stride0_broadcasts(dev, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 @pytest.mark.parametrize("case", ["small", "odd", "env_step", "diag_block",
-                                  "antidiag_block"])
+                                  "antidiag_block", "ragged", "bcast"])
 def test_pair_transfer_complex_left_and_right(dev, dtype, case):
-    """The complex body against the plain version, both forms, at the small
-    and odd sizes and the main path's shapes. At the blocks' 3136 items the
+    """The complex bodies against the plain version, both forms, at the
+    small, odd and ragged sizes, a stride-0 broadcast and the main path's
+    shapes. At the blocks' 3136 items the
     plain version's complex128 intermediates do not fit the card (past 80
     GB), so there it is held on the first 4 chains' items (the kernel runs
     on all of them)."""
@@ -562,6 +574,27 @@ def test_pair_transfer_complex_left_and_right(dev, dtype, case):
     out = head(k3.pair_transfer_right(*ops))
     ref = k3.pair_transfer_right(*small, transfer=k3.pair_transfer_plain)
     assert _rel(out, ref) <= CX_TOL[dtype]
+
+
+@pytest.mark.parametrize("values", ["real", "complex"])
+def test_pair_transfer_zmma_tile(dev, values):
+    """One m16n8k8 tile through the complex128 body's fragment loads, four
+    real MMAs and fragment positions (pair_transfer_zmma_tile): c <- x^T y
+    + c for x [8][16], y [8][8], c [16][8], against the same product in
+    torch at 1e-12. Real values hold the MMA's fragment layout alone; complex
+    ones add the sign of the negated imaginary part."""
+    from peps_tpu_torch.kernels._build import check, cuda_library
+    gen = torch.Generator(device=dev).manual_seed(11)
+    dt = torch.complex128 if values == "complex" else torch.float64
+    x, y, c = (_r(gen, dev, dt, *s).to(torch.complex128)
+               for s in ((8, 16), (8, 8), (16, 8)))
+    ref = x.T @ y + c
+    with torch.cuda.device(dev):
+        check(cuda_library().lib.pair_transfer_zmma_tile(
+            x.data_ptr(), y.data_ptr(), c.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream))
+    torch.cuda.synchronize()
+    assert _rel(c, ref) <= 1e-12
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.complex64])

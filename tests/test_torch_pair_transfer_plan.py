@@ -1,9 +1,10 @@
 """K3's launch plan (kernels/pair_transfer.py:pair_transfer_plan) on the
 CPU: at the J1-J2 path's shapes it fits the H100's shared memory (f32 at two
-CTAs an SM), its tiles cover the output exactly once, its layout keeps the
-f32 body's 16-byte stores and the f64 body's DMMA fragment loads free of
-bank conflicts, a small odd shape is planned and a shape that fits nothing
-is refused. Pure Python: no kernel runs here."""
+CTAs an SM; the complex bodies at A tiles of 2 or more), its tiles cover the
+output exactly once, its layout keeps the f32 body's 16-byte stores and the
+f64 and complex bodies' fragment loads free of bank conflicts, small odd
+and ragged shapes are planned and a shape that fits nothing is refused.
+Pure Python: no kernel runs here."""
 import ctypes
 
 import numpy as np
@@ -15,6 +16,9 @@ from peps_tpu_torch.kernels import pair_transfer as k3
 SMEM_PER_BLOCK = 232448          # 227 KB a CTA may use
 SMEM_PER_SM = 233472             # 228 KB an SM holds
 F32, F64 = torch.float32, torch.float64
+C64, C128 = torch.complex64, torch.complex128
+ITEM = {F32: 4, F64: 8, C64: 8, C128: 16}
+KQ = {F32: 1, F64: 4, C64: 1, C128: 8}          # K padded to this
 MAIN = (32, 8, 8, 32, 8, 32, 8, 8, 8, 8, 32)      # chi = 32, D = 8
 SHAPES = {
     "env_step": (MAIN, 32 * 7),
@@ -22,6 +26,7 @@ SHAPES = {
     "small": ((5, 2, 2, 7, 2, 5, 2, 2, 2, 2, 7), 3),
     "odd": ((6, 3, 3, 5, 3, 6, 3, 3, 3, 3, 5), 3),
     "chi48_d6": ((48, 6, 6, 48, 6, 48, 6, 6, 6, 6, 48), 5),
+    "ragged": ((7, 3, 3, 7, 3, 7, 3, 3, 3, 3, 7), 2),
 }
 UNPLANNABLE = (48, 12, 12, 48, 12, 48, 12, 12, 12, 12, 48)   # chi 48, D 12
 
@@ -110,7 +115,7 @@ def _regions(plan, dims):
     """(offset, size) of each shared-memory region in elements, as the
     kernel's check_plan counts them."""
     na, nm, nn, nc, nu, nA, nd, nr, ne, nf, nC = dims
-    kq = 4 if plan["dtype"] == F64 else 1
+    kq = KQ[plan["dtype"]]
 
     def kp(x):
         return -(-x // kq) * kq
@@ -127,12 +132,12 @@ def _regions(plan, dims):
             (plan["oX3"], 0 if shared else x3)]
 
 
-@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("dtype", [F32, F64, C64, C128])
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_layout_regions_are_aligned_disjoint_and_fit(name, dtype):
     dims, _ = SHAPES[name]
     plan = _plan(name, dtype)
-    item = 8 if dtype == F64 else 4
+    item = ITEM[dtype]
     w = 16 // item
     regions = _regions(plan, dims)
     for i, (o, n) in enumerate(regions):
@@ -146,8 +151,12 @@ def test_layout_regions_are_aligned_disjoint_and_fit(name, dtype):
         assert plan[key] % w == 0
         if dtype == F64:             # DMMA fragment loads: see below
             assert plan[key] % 16 == (2 if key == "ldE" and plan["sw"] else 4)
-    if dtype == F64:                 # K padded to 4: T3 shares T1 only
-        shares = (dims[4] * dims[1]) % 4 == 0 and (plan["kc"] * dims[8]) % 4 == 0
+        if dtype == C128:            # 32 mod 128 bytes, as f64's
+            assert plan[key] % 8 == 2
+    if KQ[dtype] > 1:                # K padded: T3 shares T1 only
+        kq = KQ[dtype]
+        shares = (dims[4] * dims[1]) % kq == 0 \
+            and (plan["kc"] * dims[8]) % kq == 0
         assert plan["t3_shares_t1"] == shares
 
 
@@ -166,6 +175,135 @@ def test_unplannable_shape_is_refused():
     for dtype in (F32, F64):
         with pytest.raises(RuntimeError, match="no pair_transfer plan"):
             k3.pair_transfer_plan(UNPLANNABLE, dtype)
+
+
+@pytest.mark.parametrize("dtype", [C64, C128])
+@pytest.mark.parametrize("name", ["env_step", "diag_block"])
+def test_complex_main_path_plan_fits_shared_memory(name, dtype):
+    """The complex bodies at the J1-J2 shapes: an A tile of 2 (step 4's
+    4096 complex outputs kept in registers across the chunks), one CTA an
+    SM within 227 KB, complex64 at chunks of 4 values of c, complex128 at
+    1."""
+    plan = _plan(name, dtype)
+    assert plan["ta"] >= 2 and (plan["ta"], plan["kc"]) == \
+        ((2, 4) if dtype == C64 else (2, 1))
+    assert plan["smem_bytes"] <= SMEM_PER_BLOCK
+    assert plan["smem_ctas_per_sm"] == 1
+    assert plan["body"] == ("simt_cx4x4_c64" if dtype == C64
+                            else "zmma_m16n8k8_c128")
+    assert plan["ctas"] == SHAPES[name][1] * 16      # 32 values of A / 2
+    assert (plan["kl"], plan["zn"], plan["sw"]) == (plan["kc"],
+                                                    8 * plan["kc"], 0)
+
+
+def _complex_step4_cover(plan, dims):
+    """How often each output value of one item is written by the complex
+    bodies' step 4: complex64, each thread's 4 x 4 tile of its warp's 16 x
+    32 block (lane & 3 rows, lane >> 2 columns); complex128, each warp's 2 x
+    2 MMA tiles of 16 x 8 (lane l: rows l >> 2 and + 8, columns 2 (l & 3)
+    and + 1), masked at the valid rows and columns."""
+    nA, nr, nf, nC = dims[5], dims[7], dims[9], dims[10]
+    ta, m4 = plan["ta"], plan["ta"] * dims[7] * dims[9]
+    count = np.zeros((nA, nr * nf, nC), dtype=int)
+    for a0 in range(0, nA, ta):
+        rows = min(ta, nA - a0) * nr * nf
+        cells = []
+        if plan["dtype"] == C64:
+            n_sm = -(-m4 // 16)
+            for w in range(min(k3.WARPS, n_sm * -(-nC // 32))):
+                for lane in range(32):
+                    m0 = (w % n_sm) * 16 + (lane & 3) * 4
+                    n0 = (w // n_sm) * 32 + (lane >> 2) * 4
+                    if m0 < m4 and n0 < nC:
+                        cells += [(m0 + i, n0 + j) for i in range(4)
+                                  for j in range(4)]
+        else:
+            n_wm = -(-m4 // 32)
+            for w in range(min(k3.WARPS, n_wm * -(-nC // 16))):
+                m0, n0 = (w % n_wm) * 32, (w // n_wm) * 16
+                for lane in range(32):
+                    cells += [(m0 + 16 * i + (lane >> 2) + 8 * (v >> 1),
+                               n0 + 8 * j + 2 * (lane & 3) + (v & 1))
+                              for i in range(2) for j in range(2)
+                              for v in range(4)]
+        for r, c in cells:
+            if r < rows and c < nC:
+                count[a0 + r // (nr * nf), r % (nr * nf), c] += 1
+    return count
+
+
+@pytest.mark.parametrize("dtype", [C64, C128])
+@pytest.mark.parametrize("name", ["env_step", "small", "odd", "ragged",
+                                  "chi48_d6"])
+def test_complex_tiles_cover_the_output_exactly_once(name, dtype):
+    dims, items = SHAPES[name]
+    plan = k3.pair_transfer_plan(dims, dtype, items)
+    assert plan["ctas"] == items * -(-dims[5] // plan["ta"])
+    assert (plan["c_chunks"] - 1) * plan["kc"] < dims[3] \
+        <= plan["c_chunks"] * plan["kc"]
+    assert (_complex_step4_cover(plan, dims) == 1).all()
+
+
+@pytest.mark.parametrize("dtype", [F32, F64, C64, C128])
+def test_ragged_shape_is_planned(dtype):
+    """chi 7, D 3: the last A tile and the last c chunk are partial for the
+    complex bodies (7 values of A and of c in tiles and chunks of 4)."""
+    dims, items = SHAPES["ragged"]
+    plan = k3.pair_transfer_plan(dims, dtype, items)
+    assert plan["smem_bytes"] <= SMEM_PER_BLOCK
+    if dtype in (C64, C128):
+        assert dims[5] % plan["ta"] != 0 and dims[3] % plan["kc"] != 0
+
+
+@pytest.mark.parametrize("dtype", [C64, C128])
+def test_complex_unplannable_shape_is_refused(dtype):
+    with pytest.raises(RuntimeError, match="no pair_transfer plan"):
+        k3.pair_transfer_plan(UNPLANNABLE, dtype)
+
+
+def _quarter_wavefronts(chunks):
+    """Wavefronts one quarter-warp's 16-byte loads take: the most distinct
+    16-byte chunks that share one of the 8 bank groups (a chunk read by
+    several lanes is one)."""
+    groups = {}
+    for c in set(chunks):
+        groups.setdefault(c % 8, set()).add(c)
+    return max(len(v) for v in groups.values())
+
+
+@pytest.mark.parametrize("name", ["env_step", "diag_block", "odd"])
+def test_complex64_fragment_loads_are_conflict_free(name):
+    """complex64: a lane loads 4 complex values (32 bytes) of X at column
+    m0 + 4 (lane & 3) and of Y at n0 + 4 (lane >> 2), as two 16-byte loads;
+    each quarter-warp's loads touch one chunk per bank group, for any
+    leading dim and row."""
+    plan = _plan(name, C64)
+    for key in ("ldE", "ldT", "ldR1", "ldR2", "ld1", "ld2", "ld3", "ldB"):
+        ld = plan[key]
+        for k in range(3):
+            for quarter in range(4):
+                lanes = range(8 * quarter, 8 * quarter + 8)
+                for half in (0, 1):
+                    for col in (lambda l: 4 * (l & 3), lambda l: 4 * (l >> 2)):
+                        chunks = [(k * ld + col(l)) // 2 + half for l in lanes]
+                        assert _quarter_wavefronts(chunks) == 1
+
+
+@pytest.mark.parametrize("name", ["env_step", "diag_block", "odd"])
+def test_complex128_fragment_loads_are_conflict_free(name):
+    """complex128: lane l loads one element (16 bytes) at row l & 3 (+ 4)
+    and column l >> 2 (+ 8) of its tile; with every leading dim 2 mod 8
+    elements, each quarter-warp's 8 lanes hit 8 distinct bank groups."""
+    plan = _plan(name, C128)
+    for key in ("ldE", "ldT", "ldR1", "ldR2", "ld1", "ld2", "ld3", "ldB"):
+        ld = plan[key]
+        for k0 in (0, 4):
+            for c0 in (0, 8, 16):
+                for quarter in range(4):
+                    lanes = range(8 * quarter, 8 * quarter + 8)
+                    chunks = [(k0 + (l & 3)) * ld + c0 + (l >> 2)
+                              for l in lanes]
+                    assert _quarter_wavefronts(chunks) == 1
 
 
 def test_plan_refuses_what_the_kernel_does_not_take():
