@@ -100,7 +100,9 @@ Phases, one line each (failures exit non-zero before the last line):
      energy-stall stop (energy_abs_tol 1e-2, patience 3) and a step
      observer (executed_steps, converged) -> to_tps -> 2 SR iterations of
      vmc_optimize -> measure() (8 samples, the S+S- walkers), E/site in
-     (-0.70, -0.40), complex K1 and K2 launched; (b) an energy-only
+     (-0.70, -0.40), complex K1 and K2 launched, then the SR run and
+     measure() again with CUDA events around each K1 launch (K1's device
+     ms and launches in each); (b) an energy-only
      J1-J2 (J2 = J1/2) evaluation of that complex64 state with
      eval_chunk 8 (complex K3), its peak memory and K3's device ms in it
      (CUDA events around each K3 call) against its wall seconds; (c)
@@ -116,16 +118,20 @@ Phases, one line each (failures exit non-zero before the last line):
      eval_chunk None and 8 on the same uniforms, energies within 1e-5
      relative, both peaks printed.
 Phase 2 also holds the complex bodies of K1, K2 and K3 (complex64 to 1e-5,
-complex128 to 1e-12) at the main path's largest shapes: K1 at the pair
-traces and the walker, K2 on the 8x8 D=8 SR buffer with a psi = 0 row, K3
+complex128 to 1e-12) at the main path's shapes: K1 at all ten cases of
+k1_cases, K2 on the 8x8 D=8 SR buffer with a psi = 0 row, K3
 at every case of k3_cases (the BTen2 env step in both forms, the diagonal
 block's lblk and rblk, the anti-diagonal block's lblk; at the blocks the
 complex128 plain chain and einsum run on 4 chains' items: the full
 block's intermediates do not fit the card), each with its time, bound (a
 complex multiply-add is 4
 real FMAs; complex64 on the FP32 peak, complex128 on the f64 one), the
-plain version's and the yardstick's times and the plan (kernels_complex
-lines); a slow complex kernel is reported, not failed.
+plain version's and the yardstick's times, the plan and, for K1 and K3,
+the compiled kernel's registers a thread and spill bytes (kernels_complex
+lines); a slow complex kernel is reported, not failed. Phase 9 also times
+K1's launches inside the complex64 SR evaluation and measure() (CUDA
+events around each launch, in a second run of each: the events cost host
+time) and prints their device ms and count.
 Each phase ends with a phase_end line holding its wall seconds.
 Phase 2 also holds K1 at the walker's shape (2048 items, top, bot and site
 broadcast over the start column) and at the 3-site window's (32 chains x 6
@@ -176,8 +182,10 @@ SWEEPS_3SITE = 2
 TOL = {"float32": 1e-5, "float64": 1e-12, "complex64": 1e-5,
        "complex128": 1e-12}
 COMPLEX_DTYPES = ("complex64", "complex128")
-# phase 2's complex cases: the main path's largest shapes of each kernel
-K1_COMPLEX_CASES = ("nn_traces", "walker")
+# phase 2's complex cases: K1 at every main-path shape, K3 at its largest
+K1_COMPLEX_CASES = ("sketch_v_step", "sketch_w_step", "right_btens",
+                    "bond_step", "row_envs", "right_blocks", "nn_traces",
+                    "walker", "window3_first", "window3_next")
 K3_COMPLEX_CASES = ("env_step", "env_step_right", "diag_block",
                     "diag_block_right", "antidiag_block")
 K3_SUBSET_CHAINS = 4       # complex128 blocks: the plain chain on 4 chains
@@ -321,6 +329,64 @@ def k1_cases(dtype, device, gen):
         ("window3_next", "left", r(nc, 6, *env), t3[:, wx, None], s6,
          w_bots[:, ly // 2, wx, None]),
     ]
+
+
+def k1_views(form, ops):
+    """The left-form operands a K1 call of this form computes on."""
+    if form == "left":
+        return tuple(ops)
+    env, *rest = ops
+    return (env, *(o.transpose(-3, -1) for o in rest))
+
+
+def k1_device_ms(fn, by_items=None):
+    """fn() with every K1 launch between two CUDA events (the kernel
+    library's K1 entries wrapped, whichever module calls K1). Returns (fn's
+    result, device ms summed over those launches, the launches, fn's
+    synchronized wall seconds, which include the events' host cost). A dict
+    by_items receives {batch items: [launches, device ms]}."""
+    import torch
+    from peps_tpu_torch.kernels import _build
+    real = _build.cuda_library
+    built = real()
+    events = []
+
+    class Timed:
+        def __getattr__(self, name):
+            entry = getattr(built.lib, name)
+            if name not in ("col_transfer_f32", "col_transfer_f64",
+                            "col_transfer_c64", "col_transfer_c128"):
+                return entry
+
+            def call(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                code = entry(*args)
+                end.record()
+                meta = args[5]      # the launch meta: batch sizes first
+                events.append((start, end, math.prod(meta[:4])))
+                return code
+            return call
+
+    _build.cuda_library = lambda: built._replace(lib=Timed())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        _build.cuda_library = real
+    wall = time.perf_counter() - t0
+    total = 0.0
+    for start, end, items in events:
+        ms = start.elapsed_time(end)
+        total += ms
+        if by_items is not None:
+            rec = by_items.setdefault(items, [0, 0.0])
+            rec[0] += 1
+            rec[1] += ms
+    return out, total, len(events), wall
 
 
 def k3_work(env, top, row1, row2, bot, out):
@@ -514,16 +580,14 @@ def phase_kernels(device):
                          else "fp64_flops"]
         for case in k1_cases(dtype, device, gen):
             name, form, env, top, site, bot = case
+            views = k1_views(form, (env, top, site, bot))
             if form == "right":
                 kern = lambda: k1.col_transfer_right(env, top, site, bot)
                 plain = lambda: k1.col_transfer_right(
                     env, top, site, bot, transfer=k1.col_transfer_plain)
-                views = (env, top.transpose(-3, -1), site.transpose(-3, -1),
-                         bot.transpose(-3, -1))
             else:
                 kern = lambda: k1.col_transfer(env, top, site, bot)
                 plain = lambda: k1.col_transfer_plain(env, top, site, bot)
-                views = (env, top, site, bot)
             one_call = lambda: torch.einsum(EINSUM_1CALL, *views)
             out, ref = kern(), plain()
             torch.cuda.synchronize()
@@ -536,13 +600,15 @@ def phase_kernels(device):
             bound_by = "operations" if flops / flop_rate >= nbytes / HBM_BPS \
                 else "bytes"
             batch = tuple(out.shape[:-3])
+            diag = k1.col_transfer_diagnostic(*views)
             log("kernels", kernel="col_transfer", case=name, form=form,
                 dtype=str(dtype), batch=batch, items=math.prod(batch),
                 rel_err=rel, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                 einsum_1call_ms=one_ms, flops=flops, bytes=nbytes,
                 bound_ms=bound_ms, bound_by=bound_by,
                 pct_of_bound=100 * bound_ms / ms,
-                plan=k1.col_transfer_plan(*views))
+                regs_per_thread=diag["regs_per_thread"],
+                spill_bytes=diag["spill_bytes"], plan=diag)
             if not (rel <= tol):
                 fail(f"col_transfer {name} {dtype}: rel err {rel} > {tol}")
             if dtype == torch.float32:
@@ -685,9 +751,9 @@ def _complex_record(kernel, name, dtype, out, ref, ms, plain_ms, lib_ms,
 
 def phase_kernels_complex(device, peak, gen):
     """Phase 2, complex part: K1, K2 and K3's complex bodies (complex64 and
-    complex128) against their plain versions at the main path's largest
-    shapes (K1: the pair traces and the walker; K2: the 8x8 D=8 SR buffer
-    with a psi = 0 row; K3: the BTen2 env step and the diagonal block),
+    complex128) against their plain versions at the main path's shapes
+    (K1: every case of k1_cases; K2: the 8x8 D=8 SR buffer with a psi = 0
+    row; K3: the BTen2 env step and the blocks),
     timed in turns with the plain version and the yardstick (one einsum
     for K1 and K3, a copy_ of as many bytes for K2). At the diagonal block
     the complex128 plain chain and einsum do not fit the card (past 80 GB
@@ -704,9 +770,7 @@ def phase_kernels_complex(device, peak, gen):
         for name, form, env, top, site, bot in k1_cases(dtype, device, gen):
             if name not in K1_COMPLEX_CASES:
                 continue
-            views = (env, top, site, bot) if form == "left" else \
-                (env, top.transpose(-3, -1), site.transpose(-3, -1),
-                 bot.transpose(-3, -1))
+            views = k1_views(form, (env, top, site, bot))
             res, ref = k1.col_transfer(*views), k1.col_transfer_plain(*views)
             torch.cuda.synchronize()
             t = _in_turns({"plain": lambda: k1.col_transfer_plain(*views),
@@ -714,10 +778,13 @@ def phase_kernels_complex(device, peak, gen):
                            "one": lambda: torch.einsum(EINSUM_1CALL, *views)},
                           5)
             flops, nbytes = k1_work(*views, res)
+            diag = k1.col_transfer_diagnostic(*views)
             rec = _complex_record("col_transfer", name, dtype, res, ref,
                                   t["kern"], t["plain"], t["one"], flops,
-                                  nbytes, peak, k1.col_transfer_plan(*views),
-                                  items=math.prod(res.shape[:-3]))
+                                  nbytes, peak, diag, form=form,
+                                  items=math.prod(res.shape[:-3]),
+                                  regs_per_thread=diag["regs_per_thread"],
+                                  spill_bytes=diag["spill_bytes"])
             if name == "nn_traces":
                 out["col_transfer"][dt] = rec
             del res, ref
@@ -1642,7 +1709,8 @@ def phase_bosonic_close(res, device):
     """Phase 9: the rest of the bosonic OBC surface, at the main path's
     width, each step with the launch counters at 0: (a) the complex64 main
     path (SU with the energy-stall stop and a step observer, to_tps, SR,
-    measure() with the walkers); (b) a complex J1-J2 energy-only evaluation
+    measure() with the walkers, then both again with K1's launches timed);
+    (b) a complex J1-J2 energy-only evaluation
     with eval_chunk, K3's device ms in it; (c) complex128 on the card
     against the port on the CPU (4x4, D=4, chi=16, 8 chains, one SR
     evaluation of J1-J2 on the same uniforms); (d) TFIM: the site term
@@ -1748,6 +1816,24 @@ def phase_bosonic_close(res, device):
     if l_vmc["col_transfer"] == 0 or l_vmc["centered_o"] == 0 or \
             l_meas["col_transfer"] == 0:
         fail(f"complex main path: K1/K2 not launched: {l_vmc}, {l_meas}")
+    # K1's device time in the same SR run and measure() (CUDA events around
+    # each K1 launch; a second run of each, so that the events' host cost
+    # stays out of the wall times above)
+    for name, run in (
+            ("vmc_sr_complex64", lambda: vmc_optimize(
+                state, model, params,
+                torch.Generator(device=device).manual_seed(91))),
+            ("measure_complex64", lambda: measure(
+                vmc.state, model, mp, CHI, trunc, UpdateRule("exchange"),
+                vmc.final_configs,
+                generator=torch.Generator(device=device).manual_seed(92)))):
+        by_items = {}
+        (_, k1_ms, k1_calls, wall), _ = step(
+            f"{name}_k1_events", lambda: k1_device_ms(run, by_items))
+        log("bosonic_close", step=f"{name}_k1_device", k1_calls=k1_calls,
+            k1_device_ms=k1_ms, seconds_with_events=wall,
+            k1_share=k1_ms / (1e3 * wall),
+            k1_by_items={str(k): v for k, v in sorted(by_items.items())})
 
     # (b) a complex J1-J2 energy-only evaluation, eval_chunk on
     j1j2 = spin.j1j2_xxz(1, 1, 0.5, 0.5)

@@ -1,8 +1,7 @@
-// Complex arithmetic of the complex bodies of K1, K2 and K3 (complex64 and
-// complex128). A value is float2 / double2: (re, im) interleaved, the layout
-// of torch.complex64 / torch.complex128, 8- and 16-byte aligned as torch
-// allocates them. Products are written out as real FMAs on the CUDA cores:
-// one complex multiply-add is four real FMAs.
+// Complex arithmetic of K2's complex body (complex64 and complex128; K1's
+// and K3's tile products are in complex_tiles.cuh). A value is float2 /
+// double2: (re, im) interleaved, the layout of torch.complex64 /
+// torch.complex128, 8- and 16-byte aligned as torch allocates them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,16 +17,6 @@ __device__ __forceinline__ V cx_zero() {
   z.x = 0;
   z.y = 0;
   return z;
-}
-
-// acc + a b
-template <typename V>
-__device__ __forceinline__ V cx_fma(V a, V b, V acc) {
-  acc.x = fma(a.x, b.x, acc.x);
-  acc.x = fma(-a.y, b.y, acc.x);
-  acc.y = fma(a.x, b.y, acc.y);
-  acc.y = fma(a.y, b.x, acc.y);
-  return acc;
 }
 
 template <typename V>

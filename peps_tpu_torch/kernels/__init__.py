@@ -5,5 +5,7 @@ transfer. K2 ``centered_o`` (CUDA C++, ``csrc/centered_o.cu``): the
 centered SR sample matrix. K3 ``pair_transfer`` (CUDA C++,
 ``csrc/pair_transfer.cu``): the two-row (BTen2) column transfer of the
 pair passes. Each takes float32 and float64 (real bodies) and complex64
-and complex128 (a separate complex body in the same source).
+and complex128: K2 in a separate complex body, K1 and K3 in their one
+kernel template on the shared complex tile products
+(``csrc/complex_tiles.cuh``).
 """

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under ``peps_tpu_torch/csrc/*.cu`` (and the header they share,
-``complex_ops.cuh``) have a plain C interface.
+The sources under ``peps_tpu_torch/csrc/*.cu`` (and the headers they
+include, ``complex_ops.cuh`` and ``complex_tiles.cuh``) have a plain C
+interface.
 ``nvcc`` compiles them for Hopper (``sm_90a``), one process per source, all
 started together, and links them into one shared library, on first use,
 under ``build/peps_tpu_torch/`` at the root of the checkout; ``ctypes``
@@ -56,8 +57,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
-    lib.col_transfer_plan.argtypes = [ptr, ctypes.c_int, ptr]
-    lib.col_transfer_plan.restype = ctypes.c_int
+    lib.col_transfer_attributes.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int64, ptr]
+    lib.col_transfer_attributes.restype = ctypes.c_int
     lib.pair_transfer_attributes.argtypes = [ctypes.c_int, ctypes.c_int64,
                                              ptr]
     lib.pair_transfer_attributes.restype = ctypes.c_int

@@ -31,8 +31,9 @@ import math
 
 import torch
 
-from peps_tpu_torch.kernels.col_transfer import (COMPLEX, MAX_BATCH,
-                                                _merge_batch, shrink_to_fit)
+from peps_tpu_torch.kernels.col_transfer import (COMPLEX, MAX_BATCH, _cdiv,
+                                                _ld, _merge_batch, _up,
+                                                shrink_to_fit)
 
 # trailing (non-batch) dims of env, top, row1, row2, bot
 _NDIMS = (4, 3, 4, 4, 3)
@@ -71,19 +72,6 @@ def pair_transfer_plain(env, top, row1, row2, bot):
     t = torch.einsum("...mncuA,...umdr->...ncAdr", t, row1)
     t = torch.einsum("...ncAdr,...dnef->...cAref", t, row2)
     return torch.einsum("...cAref,...ceC->...ArfC", t, bot)
-
-
-def _cdiv(x, m):
-    return -(-x // m)
-
-
-def _up(x, m):
-    return _cdiv(x, m) * m
-
-
-def _ld(need, mod, rem):
-    """The least leading dim >= need that is rem modulo mod."""
-    return need + (rem - need) % mod
 
 
 def _step4_fits(ta, nr, nf, nc_, body):

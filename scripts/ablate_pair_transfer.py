@@ -3,8 +3,9 @@ copies of it with one part taken out, timed in turns on one GPU.
 
     python scripts/ablate_pair_transfer.py [--reps 5]
 
-Each variant is ``csrc/pair_transfer.cu`` with a text substitution (the
-script stops if the text is not there), built alone into
+Each variant is ``csrc/pair_transfer.cu``, with the headers it includes
+pasted in (``inline_headers``), and a text substitution (the script stops
+if the text is not there), built alone into
 ``build/other_k3/`` and launched through the K3 wrapper
 (``bench_pair_transfer.with_k3``):
 
@@ -30,6 +31,7 @@ launches); the first line is the card's name and power limit.
 """
 import argparse
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -54,9 +56,9 @@ VARIANTS = {
         ("        const int o = r + co[n];\n",
          "        const int o = r + co[n];\n"
          "        if (acc[i][j][0] != 12345.0) continue;\n"),
-        ("    cx_store(acc, m0, n0, M, N, dst, ro, co);",
+        ("    cx_store<kStagger>(acc, m0, n0, M, N, dst, ro, co);",
          "    if (acc[0][0].x == 12345.f)\n"
-         "      cx_store(acc, m0, n0, M, N, dst, ro, co);"),
+         "      cx_store<kStagger>(acc, m0, n0, M, N, dst, ro, co);"),
         ("          if (m < M && n < N)\n",
          "          if (m < M && n < N && acc[i][j][0][v] == 12345.0)\n")],
     "no_fragment_loads": [
@@ -98,6 +100,21 @@ VARIANTS = {
 }
 
 
+def inline_headers(path):
+    """A kernel source with the headers it includes from its own directory
+    (``#include "x.cuh"``) pasted in, so that a variant compiles alone from
+    any directory and a substitution reaches the headers' code too."""
+    out = []
+    for line in Path(path).read_text().splitlines(keepends=True):
+        m = re.match(r'#include "([\w.]+)"', line)
+        if m:
+            out.append(inline_headers(Path(path).parent / m.group(1))
+                       .replace("#pragma once\n", ""))
+        else:
+            out.append(line)
+    return "".join(out)
+
+
 def variant_source(src, subs):
     for old, new in subs:
         if old not in src:
@@ -126,7 +143,7 @@ def main():
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
     cuda_library()
-    src = (ROOT / "peps_tpu_torch" / "csrc" / "pair_transfer.cu").read_text()
+    src = inline_headers(ROOT / "peps_tpu_torch" / "csrc" / "pair_transfer.cu")
     out = ROOT / "build" / "other_k3"
     out.mkdir(parents=True, exist_ok=True)
     libs = {}

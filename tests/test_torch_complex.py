@@ -220,12 +220,15 @@ K3_UNPLANNABLE = (48, 12, 12, 48, 12, 48, 12, 12, 12, 12, 48)
 def test_complex_plans_fit_the_main_path(dtype):
     item = 8 if dtype == torch.complex64 else 16
     for dims in (K1_MAIN, K1_SKETCH):
-        p = k1.col_transfer_complex_plan(dims, dtype, 3584)
-        assert p["smem_bytes"] == k1.complex_smem_bytes(dims, p["ta"],
-                                                        p["kc"], item)
+        p = k1.col_transfer_launch_plan(dims, dtype, 3584)
+        assert p["smem_bytes"] == k1._complex_layout(
+            dims, p["ta"], p["kc"], dtype)["smem_bytes"]
         assert p["smem_bytes"] <= k1.SMEM_PER_BLOCK
-        assert p["ta"] * dims[6] * dims[7] <= 8 * 256
-        assert p["ctas"] == 3584 * -(-dims[4] // p["ta"])
+        assert p["mode"] == "item" and p["ctas"] == 3584
+        # step 3's output tiles in registers: 32 complex64 values a thread
+        # (two 4 x 4 tiles), 16 complex128 (a warp's 32 x 16 MMA tile)
+        assert p["ta"] * dims[6] * dims[7] <= (32 if item == 8 else 16) \
+            * k1.THREADS
     p = k3.pair_transfer_plan(K3_MAIN, dtype, 3136)
     assert p["body"] == ("simt_cx4x4_c64" if item == 8
                          else "zmma_m16n8k8_c128")
@@ -244,10 +247,10 @@ def test_complex_plans_fit_the_main_path(dtype):
 def test_complex_plans_raise_where_nothing_fits(dtype):
     with pytest.raises(RuntimeError, match="no pair_transfer plan"):
         k3.pair_transfer_plan(K3_UNPLANNABLE, dtype)
-    with pytest.raises(RuntimeError, match="no complex col_transfer plan"):
-        k1.col_transfer_complex_plan((64, 24, 64, 24, 64, 24, 24, 64), dtype)
+    with pytest.raises(RuntimeError, match="no col_transfer plan"):
+        k1.col_transfer_launch_plan((64, 24, 64, 24, 64, 24, 24, 64), dtype)
     with pytest.raises(TypeError):
-        k1.col_transfer_complex_plan(K1_MAIN, torch.float32)
+        k1.col_transfer_launch_plan(K1_MAIN, torch.int32)
 
 
 def test_complex_meta_counts_complex_elements():
@@ -262,9 +265,10 @@ def test_complex_meta_counts_complex_elements():
     meta = list(meta)
     assert tuple(batch) == (4,)
     dims = k1.k1_dims(x, top, site, bot)
-    plan = k1.col_transfer_complex_plan(dims, C128, 4)
-    assert meta[-3:] == [plan["ta"], plan["kc"], plan["smem_bytes"]]
-    assert meta[-11:-3] == dims
+    plan = k1.col_transfer_launch_plan(dims, C128, 4, 132)
+    n = len(k1.PLAN_KEYS)
+    assert meta[-n:] == k1.plan_values(plan)
+    assert meta[-n - 8:-n] == dims
     # env strides (batch, a, l, c) then top's (a, u, A): element counts
     assert meta[4:11] == [0, 0, 0] + list(x.stride())
     assert meta[11:18] == [0, 0, 0] + list(top.stride())

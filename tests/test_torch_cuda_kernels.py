@@ -256,6 +256,81 @@ def test_col_transfer_complex_left_and_right(dev, dtype, chi, D, c):
     assert _rel(out, ref) <= CX_TOL[dtype]
 
 
+K1_CASES = ("sketch_v_step", "sketch_w_step", "right_btens", "bond_step",
+            "row_envs", "right_blocks", "nn_traces", "walker",
+            "window3_first", "window3_next")
+
+
+def _k1_cases(dev, dtype, seed):
+    """chip_smoke.py's ten K1 cases (8x8, D=8, chi=32, 32 chains): both
+    sides of the item/A-tile split (32 to 192 items, 256 to 3584), both
+    forms, stride-0 operands (the shared sites, the Gaussian block, top and
+    bot broadcast over the walkers and the 3-site window's candidates)."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {c[0]: c[1:] for c in smoke.k1_cases(dtype, dev, gen)}
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("case", K1_CASES)
+def test_col_transfer_complex_main_path_cases(dev, dtype, case):
+    """The complex bodies at every main-path shape, in the case's form and
+    in the other one (the operands serve both at chi = 32)."""
+    form, env, top, site, bot = _k1_cases(dev, dtype, 31)[case]
+    for f in (form, "right" if form == "left" else "left"):
+        if f == "left":
+            out = k1.col_transfer(env, top, site, bot)
+            ref = k1.col_transfer_plain(env, top, site, bot)
+        else:
+            out = k1.col_transfer_right(env, top, site, bot)
+            ref = k1.col_transfer_right(env, top, site, bot,
+                                        transfer=k1.col_transfer_plain)
+        assert _rel(out, ref) <= CX_TOL[dtype], f
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("items", [3, 300])
+def test_col_transfer_complex_partial_chunk_and_tile(dev, dtype, items):
+    """nA and c not multiples of the plan's A tile and c chunk (a partial
+    last tile and chunk), odd D, on both sides of the item/A-tile split
+    (3 and 300 items), a stride-0 site and bot, and a strided env view."""
+    gen = torch.Generator(device=dev).manual_seed(items)
+    chi, D, c = 45, 3, 13
+    env = _r(gen, dev, dtype, items, chi, D, c + 2)[..., 1:c + 1]
+    top = _r(gen, dev, dtype, items, chi, D, chi)
+    site = _r(gen, dev, dtype, D, D, D, D)
+    bot = _r(gen, dev, dtype, c, D, c)
+    plan = k1.col_transfer_plan(env, top, site, bot)
+    assert plan["mode"] == ("item" if items >= plan["item_threshold"]
+                            else "a_tile")
+    assert chi % plan["ta"] != 0 and c % plan["kc"] != 0
+    out = k1.col_transfer(env, top, site, bot)
+    assert _rel(out, k1.col_transfer_plain(env, top, site, bot)) \
+        <= CX_TOL[dtype]
+    out = k1.col_transfer_right(env, top, site, bot)
+    ref = k1.col_transfer_right(env, top, site, bot,
+                                transfer=k1.col_transfer_plain)
+    assert _rel(out, ref) <= CX_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_col_transfer_complex_compiles_without_spill(dev, dtype):
+    """The complex bodies in both modes: registers within the 255 a thread
+    has at one CTA an SM, no local memory."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for items in (32, 3584):
+        env, top, bot = (_r(gen, dev, dtype, 1, 32, 8, 32).expand(
+            items, 32, 8, 32) for _ in range(3))
+        site = _r(gen, dev, dtype, 8, 8, 8, 8)
+        diag = k1.col_transfer_diagnostic(env, top, site, bot)
+        assert diag["spill_bytes"] == 0 and diag["ctas_per_sm"] >= 1
+
+
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 @pytest.mark.parametrize("ns,sites,k,d", [(37, 5, 81, 3), (32, 64, 4096, 2),
                                           (300, 5, 81, 4)])
