@@ -133,6 +133,37 @@ K1's launches inside the complex64 SR evaluation and measure() (CUDA
 events around each launch, in a second run of each: the events cost host
 time) and prints their device ms and count.
 Each phase ends with a phase_end line holding its wall seconds.
+ 10. fermions: (a) the Jordan-Wigner path on
+     examples/hubbard_vmc.py's configuration (2x4 Hubbard U=8, D=4,
+     chi=16, the fast scheme, 64 chains, Suwa-Todo with the N_up/N_dn
+     conservation mask, quarter filling), 2 SR iterations: finite
+     energies, every chain's N_up and N_dn kept; (b) the graded path at
+     examples/flagship_tj_6x6.py's width: 6x6 t-J (t=3, J=1) with holes at
+     (2,2) and (3,2) on the Neel background, the graded SU at D=4 with
+     U(1) charges and the QR-reduced projection (40 steps at tau 0.2, 40
+     at 0.05; seconds per step), to_tps_fermion, expand_bond_dim_graded to
+     D=8 (4|4) with noise 1e-3, then vmc_optimize on the
+     GradedFermionModel with SR (CG 40, shift 1e-3), 3 iterations, 1
+     sample step, 2 warm-up sweeps, chi=32, sketch, 32 chains, eval_chunk
+     8, float32 (seconds per evaluation, K1 forward and backward, K2, K3
+     and K4 launches, peak memory); checks: the SU estimate per site
+     finite and below the Neel state's -0.736 (53 bonds at -J/2 over 36
+     sites, from the channel tables), every SR iteration's E/site in
+     (-1.35, -0.736), N_up = N_dn = 17 in every chain, acceptance above 0,
+     every kernel launched; (c) graded t-J at 4x4, D=4, chi=6, 8 chains,
+     complex128 and float64, one SR evaluation on the card and on the CPU
+     with the same uniforms: energy, O buffer and SR direction within
+     1e-10 relative, the same configurations.
+Phase 2 also holds the fermion slice's kernels (kernels_fermion lines): K4
+(fermion_dress) in its three outputs at 6x6, D=8, d=3, 32 chains (the
+projection, the prefix-flipped projection, one row's candidates) in all
+four dtypes, exactly equal to its plain version, with its time, the plain
+version's, a copy_ of the output's bytes and the bytes bound; and K1's
+backward (the env, top and bot gradients are K1 launches) at the graded
+holes' shapes (the sketch V and W scans, the pair traces; a chunk of 8
+chains) in all four dtypes, every input's gradient within 1e-5 / 1e-12 of
+autograd through the plain transfer, timed against the plain chain's
+backward with its bound.
 Phase 2 also holds K1 at the walker's shape (2048 items, top, bot and site
 broadcast over the start column) and at the 3-site window's (32 chains x 6
 candidates, top and bot broadcast over the candidates, the left env too in
@@ -196,6 +227,24 @@ CLOSE_SR_ITERS = 2
 CLOSE_EVAL_CHUNK = 8
 TFIM_WARMUP_SWEEPS = 10
 SMALL = {"ly": 4, "lx": 4, "D": 4, "chi": 16, "nchains": 8}
+# phase 10 (fermions): examples/flagship_tj_6x6.py's width, depth cut
+FLAG = {"L": 6, "D_su": 4, "D": 8, "chi": 32, "nchains": 32, "chunk": 8,
+        "t": 3.0, "J": 1.0, "sr_iters": 3, "warmup": 2,
+        "su": ((40, 0.2), (40, 0.05))}
+# phase 10 (c): SMALL's lattice, D and chains at chi = 6, which truncates
+# every boundary past the first row; at chi = 16 the edge rows' sketch
+# Grams are rank 4 in 16, held only by the 1e-12 jitter, and the holes
+# (autograd through them) move by 4e-10 (complex128) to 1e-7 (float64)
+# between any two summation orders (the port's CPU path against the JAX
+# package's, PERF.md)
+FERMION_CARD_CPU_CHI = 6
+HUBBARD = {"ly": 2, "lx": 4, "D": 4, "chi": 16, "nchains": 64,
+           "samples": 10, "warmup": 20, "sr_iters": 2}
+# phase 2's K4 cases (6x6, D=8, t-J's d=3, 32 chains): the projection, the
+# prefix-flipped projection and one row's candidates
+K4_CASES = (("project", {"select_config": True, "f0": 0, "nf": 1}),
+            ("project_flipped", {"select_config": True, "f0": 1, "nf": 1}),
+            ("candidates_row", {"y0": 2, "ny": 1}))
 HBM_BPS = 3.35e12          # H100 SXM device memory rate (data sheet)
 EINSUM_1CALL = "...alc,...auA,...uldr,...cdC->...ArC"
 EINSUM_K3 = "...amnc,...auA,...umdr,...dnef,...ceC->...ArfC"
@@ -640,6 +689,7 @@ def phase_kernels(device):
                                    "bound_ms", "bound_by", "max_abs_err",
                                    "rel_err", "case")}
             for dt, r in by_dtype.items()}
+    rec["fermion"] = phase_kernels_fermion(device)
     return rec
 
 
@@ -1977,6 +2027,532 @@ def phase_bosonic_close(res, device):
                    for k in total}
 
 
+# ---------------------------------------------------------------------------
+# fermions: phase 2's K4 and K1-backward cases, and phase 10
+# ---------------------------------------------------------------------------
+
+def k4_phase(device, gen):
+    """Phase 2, K4 (fermion_dress): its three outputs at 6x6, D=8, d=3,
+    32 chains in all four dtypes against the plain version (exactly equal:
+    a multiply by +-1), timed in turns with the plain version and a copy_
+    of the output's bytes; the bound is the bytes (tps, configurations and
+    the output) over 3.35 TB/s. Returns the record of the float32
+    candidates of one row (the sampler's per-row call)."""
+    import torch
+    from peps_tpu_torch.fermion.convert import dress_tables
+    from peps_tpu_torch.fermion.peps import FermionSpace
+    from peps_tpu_torch.kernels import fermion_dress as k4
+    L, D, nc, d = FLAG["L"], FLAG["D"], FLAG["nchains"], 3
+    tab = dress_tables(FermionSpace((0, 1, 1), D // 2, D // 2), L, L)
+    rec = None
+    for dt in ("float32", "float64", "complex64", "complex128"):
+        dtype = getattr(torch, dt)
+        tps = torch.randn(L, L, d, D, D, D, D, generator=gen, device=device,
+                          dtype=torch.float64).to(dtype)
+        cfg = torch.randint(0, d, (nc, L, L), generator=gen, device=device)
+        for name, kw in K4_CASES:
+            out = k4.fermion_dress(tps, cfg, tab, **kw)
+            ref = k4.fermion_dress_plain(tps, cfg, tab, **kw)
+            torch.cuda.synchronize()
+            exact = bool(torch.equal(out, ref))
+            err = (out - ref).abs().max().item()
+            src = torch.empty_like(out)
+            dst = torch.empty_like(out)
+            t = _in_turns({"kern": lambda: k4.fermion_dress(tps, cfg, tab,
+                                                            **kw),
+                           "plain": lambda: k4.fermion_dress_plain(
+                               tps, cfg, tab, **kw),
+                           "copy": lambda: dst.copy_(src)}, 10)
+            nbytes = (tps.numel() + out.numel()) * tps.element_size() \
+                + cfg.numel() * cfg.element_size()
+            bound_ms = nbytes / HBM_BPS * 1e3
+            r = {"kernel": "fermion_dress", "case": name, "dtype": dt,
+                 "out_shape": list(out.shape), "exact": exact,
+                 "max_abs_err": err, "ms": t["kern"],
+                 "plain_ms": t["plain"], "copy_ms": t["copy"],
+                 "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes",
+                 "pct_of_bound": 100 * bound_ms / t["kern"],
+                 "library_ms": None}
+            log("kernels_fermion", **r)
+            if not exact:
+                fail(f"fermion_dress {name} {dt}: max |kernel - plain| "
+                     f"{err}, not 0")
+            if dt == "float32" and name == "candidates_row":
+                rec = r
+            del out, ref, src, dst
+    return rec
+
+
+def k1_backward_cases(dtype, device, gen):
+    """K1 operands at the graded holes' shapes (6x6, D=8, chi=32, a chunk
+    of 8 chains): the sketch V scan (right form, the mixing block in the
+    bot slot, no gradient there), the W scan (left form) and the pair
+    traces (all four gradients): (name, form, ops, needs_grad)."""
+    import torch
+    c, D, chi, losk = FLAG["chunk"], FLAG["D"], FLAG["chi"], FLAG["chi"] + 8
+    L = FLAG["L"]
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=device,
+                           dtype=torch.float64).to(dtype)
+
+    site = (D, D, D, D)
+    return (("sketch_v", "right", (r(c, chi, D, chi), r(c, chi, D, chi),
+                                   r(c, *site), r(chi, D, chi)),
+             (True, True, True, False)),
+            ("sketch_w", "left", (r(c, chi, D, losk), r(c, chi, D, chi),
+                                  r(c, *site), r(losk, D, losk)),
+             (True, True, True, False)),
+            ("pair_traces", "left",
+             (r(c, L, L - 1, 1, chi, D, chi), r(c, L, L - 1, 1, chi, D, chi),
+              r(c, L, L - 1, 3, *site), r(c, L, L - 1, 1, chi, D, chi)),
+             (True, True, True, True)))
+
+
+def k1_backward_work(views, needs, g):
+    """(flops, bytes) of one backward of K1 on left-form views: the three
+    transfer-shaped gradients asked for (K1's three products each) and the
+    site gradient's (env.top)(bot.g) grouping; the inputs and g read once,
+    the gradients written once."""
+    import torch
+    from peps_tpu_torch.kernels import col_transfer as k1
+    env, top, site, bot = views
+    bviews = k1.col_transfer_backward_views(g, env, top, site, bot)
+    flops = 0
+    for name, need in zip(("env", "top", None, "bot"), needs):
+        if name and need:
+            ops = bviews[name]
+            batch = torch.broadcast_shapes(ops[0].shape[:-3],
+                                           ops[1].shape[:-3],
+                                           ops[2].shape[:-4],
+                                           ops[3].shape[:-3])
+            out = torch.empty(*batch, ops[1].shape[-1], ops[2].shape[-1],
+                              ops[3].shape[-1], device="meta",
+                              dtype=env.dtype)
+            flops += k1_work(*ops, out)[0]
+    if needs[2]:
+        na, nl, nc = env.shape[-3:]
+        nu, nA = top.shape[-2:]
+        nd, nr = site.shape[-2:]
+        nC = bot.shape[-1]
+        items = math.prod(g.shape[:-3])
+        macs = items * (na * nl * nc * nu * nA + nc * nd * nC * nA * nr
+                        + nl * nc * nu * nA * nd * nr)
+        flops += 2 * macs * (4 if env.is_complex() else 1)
+    ins = sum(t.numel() for t in (*views, g))
+    outs = sum(t.numel() for t, n in zip(views, needs) if n)
+    return flops, (ins + outs) * env.element_size()
+
+
+def k1_backward_phase(device, peak, gen):
+    """Phase 2, K1's backward (ColTransferFunction: the env, top and bot
+    gradients are K1 launches) at the graded holes' shapes in all four
+    dtypes, each input's gradient held to autograd of col_transfer_plain
+    (1e-5 / 1e-12 of max |plain|), the backward timed in turns with the
+    plain chain's backward, with its bound. Returns the float32 pair
+    traces' record."""
+    import torch
+    from peps_tpu_torch.kernels import col_transfer as k1
+    rec = None
+    for dt in ("float32", "float64", "complex64", "complex128"):
+        dtype = getattr(torch, dt)
+        for name, form, ops, needs in k1_backward_cases(dtype, device, gen):
+            grads, graphs = {}, {}
+            with torch.no_grad():
+                shape = (k1.col_transfer_right(
+                    *ops, transfer=k1.col_transfer_plain) if form == "right"
+                    else k1.col_transfer_plain(*ops)).shape
+            w = torch.randn(shape, generator=gen, device=device,
+                            dtype=torch.float64).to(dtype)
+            for path in ("kern", "plain"):
+                xs = [o.detach().clone().requires_grad_(n)
+                      for o, n in zip(ops, needs)]
+                if form == "right":
+                    out = k1.col_transfer_right(*xs) if path == "kern" else \
+                        k1.col_transfer_right(
+                            *xs, transfer=k1.col_transfer_plain)
+                else:
+                    out = k1.col_transfer(*xs) if path == "kern" else \
+                        k1.col_transfer_plain(*xs)
+                req = [x for x in xs if x.requires_grad]
+                before = k1.col_transfer.backward_launches
+                grads[path] = torch.autograd.grad(out, req, w,
+                                                  retain_graph=True)
+                if path == "kern" and k1.col_transfer.backward_launches \
+                        == before:
+                    fail(f"K1 backward {name} {dt}: no K1 launch")
+                graphs[path] = (out, req, w)
+            torch.cuda.synchronize()
+            rels = [((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(grads["kern"], grads["plain"])]
+
+            def bw(path):
+                out, req, w = graphs[path]
+                return lambda: torch.autograd.grad(out, req, w,
+                                                   retain_graph=True)
+
+            t = _in_turns({"kern": bw("kern"), "plain": bw("plain")}, 5)
+            flops, nbytes = k1_backward_work(k1_views(form, ops), needs,
+                                             graphs["plain"][0])
+            flop_s = flops / _rate(peak, dtype)
+            byte_s = nbytes / HBM_BPS
+            bound_ms = max(flop_s, byte_s) * 1e3
+            r = {"kernel": "col_transfer_backward", "case": name,
+                 "form": form, "dtype": dt, "rel_err": max(rels),
+                 "rel_err_per_input": rels,
+                 "max_abs_err": max((a - b).abs().max().item() for a, b in
+                                    zip(grads["kern"], grads["plain"])),
+                 "ms": t["kern"], "plain_ms": t["plain"], "flops": flops,
+                 "bytes": nbytes, "bound_ms": bound_ms,
+                 "bound_by": "operations" if flop_s >= byte_s else "bytes",
+                 "pct_of_bound": 100 * bound_ms / t["kern"],
+                 "library_ms": None}
+            log("kernels_fermion", **r)
+            if not max(rels) <= TOL[dt]:
+                fail(f"K1 backward {name} {dt}: rel err {rels} > {TOL[dt]}")
+            if dt == "float32" and name == "pair_traces":
+                rec = r
+            del grads, graphs
+    return rec
+
+
+def fermion_counters():
+    """K1 (forward and backward), K2, K3 and K4's launch counters, set to
+    0; returns a reader of {name: launches since}."""
+    from peps_tpu_torch.kernels.centered_o import centered_o
+    from peps_tpu_torch.kernels.col_transfer import col_transfer
+    from peps_tpu_torch.kernels.fermion_dress import fermion_dress
+    from peps_tpu_torch.kernels.pair_transfer import pair_transfer
+    for k in (col_transfer, centered_o, pair_transfer, fermion_dress):
+        k.launches = 0
+    col_transfer.backward_launches = 0
+
+    def read():
+        return {"col_transfer_forward": col_transfer.launches
+                - col_transfer.backward_launches,
+                "col_transfer_backward": col_transfer.backward_launches,
+                "centered_o": centered_o.launches,
+                "pair_transfer": pair_transfer.launches,
+                "fermion_dress": fermion_dress.launches}
+    return read
+
+
+def fermion_product_energy(model, occ):
+    """Energy of the product state |occ> of a fermionic model: the diagonal
+    element of every channel on every NN bond plus the site term (phase
+    8's product_energy on the channel tables)."""
+    ly, lx = occ.shape
+    e = 0.0
+    for chans, (dy, dx) in ((model.channels_h, (0, 1)),
+                            (model.channels_v, (1, 0))):
+        for ch in chans:
+            for y in range(ly - dy):
+                for x in range(lx - dx):
+                    c1, c2 = occ[y, x], occ[y + dy, x + dx]
+                    e += float(ch.h[c1, c2, c1, c2])
+    if model.h_site is not None:
+        e += sum(float(model.h_site[c, c]) for c in occ.reshape(-1))
+    return e
+
+
+def phase_fermions(device):
+    """Phase 10: fermions. (a) JW: examples/hubbard_vmc.py's configuration
+    (2x4, D=4, chi=16, fast, 64 chains, Suwa-Todo with the conservation
+    mask, quarter filling), 2 SR iterations: finite energies, every chain's
+    N_up and N_dn kept. (b) Graded at the flagship's width
+    (examples/flagship_tj_6x6.py): 6x6 t-J, holes at (2,2) and (3,2) on
+    the Neel background; the graded SU at D=4 with U(1) charges and the
+    QR-reduced projection, 40 steps at tau 0.2 and 40 at 0.05; to_tps,
+    expand to D=8 (4|4) with noise 1e-3; SR (CG 40, shift 1e-3), 3
+    iterations, 1 sample step, chi=32, sketch, 32 chains, eval_chunk 8,
+    float32. The SU estimate per site below the Neel state's, every SR
+    iteration's E/site in (-1.35, that), N_up = N_dn = 17 in every chain,
+    acceptance above 0, every kernel launched (K1 forward and backward,
+    K2, K3, K4). (c) The card against the CPU: graded t-J at 4x4, D=4,
+    chi=6 (FERMION_CARD_CPU_CHI), 8 chains, complex128 and float64, one
+    SR evaluation on the same uniforms: energy, O buffer and SR direction
+    within 1e-10. Returns the launches of (a), the SU and (b)."""
+    import numpy as np
+    import torch
+    from peps_tpu_torch.algorithm.mc_evaluator import MCParams, mc_energy_grad
+    from peps_tpu_torch.algorithm.vmc_optimize import VMCParams, vmc_optimize
+    from peps_tpu_torch.fermion.graded import GT, parity_mask
+    from peps_tpu_torch.fermion.peps import (FermionSpace,
+                                             expand_bond_dim_graded,
+                                             fermion_simple_update,
+                                             product_fermion_peps,
+                                             space_for_model, to_tps_fermion,
+                                             u1_charges_for)
+    from peps_tpu_torch.fermion.vmc import GradedFermionModel
+    from peps_tpu_torch.lattice import boundary_mask
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import fermion
+    from peps_tpu_torch.montecarlo.sweep import UpdateRule, draw_uniforms
+    from peps_tpu_torch.optimizer.cg import CGParams
+    from peps_tpu_torch.optimizer.optimizer import (OptimizerParams,
+                                                    SRParams,
+                                                    sr_natural_gradient)
+    from peps_tpu_torch.peps import SimpleUpdateParams
+    from peps_tpu_torch.tps import random_tps
+
+    def sr(iters, cg_iters, tol=1e-5):
+        return OptimizerParams(iters, SRParams(CGParams(cg_iters, tol),
+                                               diag_shift=1e-3), lr=0.05)
+
+    # (a) JW Hubbard
+    hp = HUBBARD
+    ly, lx = hp["ly"], hp["lx"]
+    n = ly * lx
+    hub = fermion.hubbard(t=1.0, u=8.0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    tps = random_tps(gen, ly, lx, 4, hp["D"], torch.float32, scale=0.5,
+                     device=device)
+    params = VMCParams(
+        hp["chi"], TruncParams(hp["chi"], 1, 1e-8, scheme="fast"),
+        MCParams(num_samples=hp["samples"], num_warmup_sweeps=hp["warmup"],
+                 nchains=hp["nchains"]), sr(hp["sr_iters"], 80),
+        rule=UpdateRule("suwa_todo", fermion.hubbard_conserve_mask()),
+        occupancy=((0, n // 2), (1, n // 4), (2, n // 4)))
+    read = fermion_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = vmc_optimize(tps, hub, params, gen)
+    torch.cuda.synchronize()
+    cfg = res.final_configs.cpu().numpy()
+    n_up = np.asarray(hub.n_up)[cfg].sum((1, 2))
+    n_dn = np.asarray(hub.n_dn)[cfg].sum((1, 2))
+    l_jw = read()
+    log("fermions", step="jw_hubbard", lattice=[ly, lx], D=hp["D"],
+        chi=hp["chi"], chains=hp["nchains"], samples=hp["samples"],
+        energy_per_site=[e / n for e in res.energies],
+        accept=[r.accept_rate for r in res.records],
+        seconds=time.perf_counter() - t0, launches=l_jw,
+        n_up_kept=bool(np.all(n_up == n // 4)),
+        n_dn_kept=bool(np.all(n_dn == n // 4)))
+    if not all(math.isfinite(e) for e in res.energies):
+        fail(f"JW Hubbard: energies {res.energies}")
+    if not (np.all(n_up == n // 4) and np.all(n_dn == n // 4)):
+        fail("JW Hubbard: a chain changed its N_up or N_dn")
+
+    # (b) the graded flagship
+    L = FLAG["L"]
+    model = fermion.tj_model(FLAG["t"], FLAG["J"])
+    occ0 = (np.indices((L, L)).sum(0) % 2 + 1).astype(int)
+    occ0[2, 2] = 0
+    occ0[3, 2] = 0
+    n = L * L
+    n_up0, n_dn0 = int((occ0 == 1).sum()), int((occ0 == 2).sum())
+    e_neel = fermion_product_energy(model, occ0) / n
+    space4 = space_for_model(model, FLAG["D_su"])
+    space8 = FermionSpace(space4.phys_parity, FLAG["D"] // 2,
+                          FLAG["D"] // 2)
+    read = fermion_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    charges = u1_charges_for(model, space4, occ0)
+    peps = product_fermion_peps(L, L, space4, occ0, device=device)
+    stamps = []
+
+    def observe(step, e0, en, trunc_err):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    su_log = []
+    for steps, tau in FLAG["su"]:
+        out = fermion_simple_update(
+            peps, model, space4,
+            SimpleUpdateParams(steps, tau, TruncParams(FLAG["D_su"], 1,
+                                                       1e-12)),
+            step_observer=observe, charges=charges)
+        peps = out.peps
+        su_log.append({"tau": tau, "steps": out.executed_steps,
+                       "estimated_e0_per_site": out.estimated_e0 / n})
+    torch.cuda.synchronize()
+    t_su = time.perf_counter() - t0
+    su_step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    l_su = read()
+    e_su = out.estimated_e0 / n
+    log("fermions", step="graded_su", lattice=[L, L], D=FLAG["D_su"],
+        stages=su_log, seconds=t_su,
+        seconds_per_su_step=sum(su_step_s) / max(len(su_step_s), 1),
+        neel_energy_per_site=e_neel, launches=l_su)
+    if not (math.isfinite(e_su) and e_su < e_neel):
+        fail(f"graded SU: estimated e0 per site {e_su}, Neel {e_neel}")
+
+    tps4 = to_tps_fermion(peps).to(torch.float32)
+    tps4 = tps4 / tps4.abs().max()
+    tps = expand_bond_dim_graded(tps4, space4, space8, 1e-3,
+                                 torch.Generator(device=device)
+                                 .manual_seed(11))
+    gm = GradedFermionModel.from_model(model, space8, tps.dtype, device)
+    recs = []
+
+    def on_iter(rec, state):
+        recs.append(rec)
+        log("fermions", step="graded_sr_iteration", iteration=rec.step,
+            energy_per_site=rec.energy / n,
+            energy_error_per_site=rec.energy_error / n,
+            accept_rate=rec.accept_rate, sr_iters=rec.sr_iters,
+            eval_s=rec.eval_seconds, update_s=rec.update_seconds)
+
+    vp = VMCParams(
+        FLAG["chi"], TruncParams(FLAG["chi"], 1, 1e-6, scheme="sketch"),
+        MCParams(num_samples=1, num_warmup_sweeps=FLAG["warmup"],
+                 nchains=FLAG["nchains"], eval_chunk=FLAG["chunk"]),
+        sr(FLAG["sr_iters"], 40),
+        occupancy=((0, n - n_up0 - n_dn0), (1, n_up0), (2, n_dn0)))
+    read = fermion_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = vmc_optimize(tps, gm, vp, torch.Generator(device=device)
+                       .manual_seed(5), callback=on_iter)
+    torch.cuda.synchronize()
+    t_vmc = time.perf_counter() - t0
+    l_vmc = read()
+    cfg = res.final_configs.cpu().numpy()
+    keeps = bool(np.all((cfg == 1).sum((1, 2)) == n_up0)
+                 and np.all((cfg == 2).sum((1, 2)) == n_dn0))
+    e_site = [e / n for e in res.energies]
+    log("fermions", step="graded_vmc", lattice=[L, L], D=FLAG["D"],
+        chi=FLAG["chi"], chains=FLAG["nchains"], eval_chunk=FLAG["chunk"],
+        energy_per_site=e_site, seconds=t_vmc,
+        seconds_per_evaluation=[r.eval_seconds for r in recs],
+        accept=[r.accept_rate for r in recs], n_up=n_up0, n_dn=n_dn0,
+        numbers_kept=keeps, launches=l_vmc,
+        peak_mem_GB=torch.cuda.max_memory_allocated(device) / 1e9)
+    if not all(math.isfinite(e) and -1.35 < e < e_neel for e in e_site):
+        fail(f"graded VMC: E/site {e_site} outside (-1.35, {e_neel})")
+    if not keeps:
+        fail("graded VMC: a chain changed its N_up or N_dn")
+    if not all(r.accept_rate > 0 for r in recs):
+        fail(f"graded VMC: acceptance {[r.accept_rate for r in recs]}")
+    missing = [k for k, v in l_vmc.items() if v == 0]
+    if missing:
+        fail(f"graded VMC: kernels not launched: {missing}")
+    graded_breakdown(res, gm, vp, device)
+
+    # (c) the card against the CPU
+    ly, lx, dd, nc = (SMALL[k] for k in ("ly", "lx", "D", "nchains"))
+    chi = FERMION_CARD_CPU_CHI
+    sp = FermionSpace((0, 1, 1), dd // 2, dd // 2)
+    pm = parity_mask(GT(torch.zeros((3,) + (dd,) * 4),
+                        (sp.phys_parity,) + (sp.bond_parity,) * 4,
+                        (False, True, True, False, False)))
+    rng = np.random.default_rng(96)
+    shape = (ly, lx, 3) + (dd,) * 4
+    base = np.array([0] * 2 + [1] * 7 + [2] * 7)
+    cfg0 = np.stack([rng.permutation(base).reshape(ly, lx)
+                     for _ in range(nc)])
+    uni = draw_uniforms(torch.Generator().manual_seed(97), nc, ly, lx,
+                        torch.float64, "cpu")
+    trunc = TruncParams(chi, 1, 1e-12, scheme="sketch")
+    cmp = {}
+    for dt in ("complex128", "float64"):
+        a = rng.standard_normal(shape)
+        if dt == "complex128":
+            a = a + 1j * rng.standard_normal(shape)
+        a = a * pm * boundary_mask(ly, lx, 3, dd)
+        evs = {}
+        for where in ("cpu", device):
+            gm_s = GradedFermionModel.from_model(fermion.tj_model(), sp,
+                                                 getattr(torch, dt), where)
+            u = tuple(x.to(where) for x in uni)
+            t1 = time.perf_counter()
+            ev, cfg_o, _ = mc_energy_grad(
+                torch.as_tensor(a, device=where),
+                torch.as_tensor(cfg0, device=where), gm_s, chi, trunc,
+                MCParams(num_samples=1, num_warmup_sweeps=0, nchains=nc),
+                lambda: u, with_sr_buffers=True)
+            nat, cg = sr_natural_gradient(
+                ev, SRParams(CGParams(100, 1e-12), diag_shift=1e-3),
+                a.shape)
+            evs[str(where) if where == "cpu" else "card"] = (
+                ev, cfg_o.cpu(), nat.cpu(), int(cg.iterations),
+                time.perf_counter() - t1)
+        (ev_c, cfg_c, nat_c, it_c, s_c), (ev_g, cfg_g, nat_g, it_g, s_g) = \
+            evs["cpu"], evs["card"]
+        diffs = {"energy": abs(float(ev_g.energy) - float(ev_c.energy))
+                 / abs(float(ev_c.energy)),
+                 "o_samples": _rel_diff(ev_g.o_samples.cpu(), ev_c.o_samples),
+                 "sr_direction": _rel_diff(nat_g, nat_c)}
+        same = bool(torch.equal(cfg_g, cfg_c))
+        cmp[dt] = diffs
+        log("fermions", step="graded_card_vs_cpu", dtype=dt,
+            lattice=[ly, lx], D=dd, chi=chi, chains=nc, rel_diff=diffs,
+            same_configurations=same, cg_iterations=[it_c, it_g],
+            cpu_s=s_c, card_s=s_g)
+        if not (all(v <= 1e-10 for v in diffs.values()) and same):
+            fail(f"graded {dt} card against CPU: {diffs}, configurations "
+                 f"equal {same}")
+    return {"jw_hubbard": l_jw, "graded_su": l_su, "graded_vmc": l_vmc}
+
+
+def graded_breakdown(res, gm, vp, device):
+    """Where a graded SR iteration's time goes, on the optimized state and
+    final configurations (synchronized host clock, the launch counters
+    read per part): one sweep of every chain; per eval chunk the holes
+    (autograd through the top stack, undressed by K4) and the tables and
+    E_loc (the env stacks of the other frame, the pair envs); K2 and the
+    SR solve (CG 40) of the evaluation's buffers."""
+    import torch
+    from peps_tpu_torch.algorithm.mc_evaluator import _center_scale
+    from peps_tpu_torch.fermion.sweep import mc_sweep_fermion_shared
+    from peps_tpu_torch.fermion.vmc import _holes, graded_energy_and_holes
+    from peps_tpu_torch.optimizer.cg import CGParams, cg_solve
+    tps, cfg = res.state, res.final_configs
+    chi, trunc, chunk = vp.chi, vp.trunc, vp.mc.eval_chunk
+    parts, launches = {}, {}
+
+    def timed(name, fn):
+        read = fermion_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+        launches[name] = {k: launches.get(name, {}).get(k, 0) + v
+                          for k, v in read().items()}
+        return out
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    timed("sweep", lambda: mc_sweep_fermion_shared(
+        tps, gm.space, cfg, chi, trunc, generator=gen))
+    holes = []
+    for sl in range(0, cfg.shape[0], chunk):
+        c = cfg[sl:sl + chunk]
+
+        def hole():
+            from peps_tpu_torch.fermion.convert import fermion_project
+            return _holes(tps, c, gm.space, chi, trunc,
+                          fermion_project(tps, c, gm.space))[0]
+        holes.append(timed("holes", hole))
+        timed("tables_and_e_loc", lambda: graded_energy_and_holes(
+            tps, c, gm, chi, trunc, with_holes=False))
+    h = torch.cat(holes)
+    ly, lx = tps.shape[0], tps.shape[1]
+    ones = torch.ones(h.shape[:3], dtype=h.dtype, device=h.device)
+    a = timed("k2", lambda: _center_scale(h.reshape(1, h.shape[0], ly, lx,
+                                                    -1), ones[None],
+                                          cfg[None], tps.shape[2]))
+    g = torch.randn(a.shape[1], generator=gen, device=device,
+                    dtype=a.dtype)
+    timed("sr_solve", lambda: cg_solve(
+        lambda v: a.mH @ (a @ v) + 1e-3 * v, g, None, CGParams(40, 1e-5)))
+    total = sum(parts.values())
+    log("fermions", step="graded_breakdown", seconds=parts,
+        share={k: v / total for k, v in parts.items()}, launches=launches)
+
+
+def phase_kernels_fermion(device):
+    """Phase 2, the fermion slice's kernels: K4 and K1's backward."""
+    import torch
+    peak = peak_rates(device)
+    gen = torch.Generator(device=device).manual_seed(4321)
+    return {"fermion_dress": k4_phase(device, gen),
+            "col_transfer_backward": k1_backward_phase(device, peak, gen)}
+
+
 def main():
     try:
         import torch
@@ -2021,6 +2597,10 @@ def main():
                           j1j2, su_s, e_svd)
     launches_close, launches_cx = timed("bosonic_close",
                                         phase_bosonic_close, res, device)
+    launches_f = timed("fermions", phase_fermions, device)
+    graded = launches_f["graded_vmc"]
+    k4 = kern["fermion"]["fermion_dress"]
+    bwd = kern["fermion"]["col_transfer_backward"]
 
     record = {"kernels": [
         {"name": "col_transfer", "route": "cuda",
@@ -2033,6 +2613,12 @@ def main():
          "launches_bosonic_rest": launches_rest["col_transfer"],
          "launches_bosonic_close": launches_close["col_transfer"],
          "launches_complex": launches_cx["col_transfer"],
+         "launches_fermions": graded["col_transfer_forward"]
+         + graded["col_transfer_backward"],
+         "launches_backward_fermions": graded["col_transfer_backward"],
+         "backward": {k: bwd[k] for k in ("case", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "max_abs_err", "rel_err")},
          **kern["col_transfer"]},
         {"name": "centered_o", "route": "cuda",
          "source": "peps_tpu_torch/csrc/centered_o.cu",
@@ -2043,6 +2629,7 @@ def main():
          "launches_bosonic_rest": launches_rest["centered_o"],
          "launches_bosonic_close": launches_close["centered_o"],
          "launches_complex": launches_cx["centered_o"],
+         "launches_fermions": graded["centered_o"],
          **kern["centered_o"]},
         {"name": "pair_transfer", "route": "cuda",
          "source": "peps_tpu_torch/csrc/pair_transfer.cu",
@@ -2051,7 +2638,17 @@ def main():
          "launches_bosonic_rest": launches_rest["pair_transfer"],
          "launches_bosonic_close": launches_close["pair_transfer"],
          "launches_complex": launches_cx["pair_transfer"],
+         "launches_fermions": graded["pair_transfer"],
          **kern["pair_transfer"]},
+        {"name": "fermion_dress", "route": "cuda",
+         "source": "peps_tpu_torch/csrc/fermion_dress.cu",
+         "replaces": "peps_tpu/fermion/convert.py:123",
+         "launches": graded["fermion_dress"],
+         "launches_jw": launches_f["jw_hubbard"]["fermion_dress"],
+         "launches_graded_su": launches_f["graded_su"]["fermion_dress"],
+         **{k: k4[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
+                               "copy_ms", "bound_ms", "bound_by",
+                               "library_ms")}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

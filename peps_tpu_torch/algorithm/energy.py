@@ -63,16 +63,38 @@ class ModelTensors(NamedTuple):
         return cls(*(conv(f) for f in cls._fields))
 
 
+def model_tensors(model, dtype, device, entry: str):
+    """The evaluator's form of a model: ``ModelTensors`` of a bosonic
+    square-lattice model, ``FermionTensors`` of a fermionic model in the
+    Jordan-Wigner representation; ModelTensors, FermionTensors and a
+    ``GradedFermionModel`` pass through. Anything else is refused."""
+    from peps_tpu_torch.algorithm.energy_fermion import FermionTensors
+    if isinstance(model, (ModelTensors, FermionTensors)) or (
+            hasattr(model, "ft") and hasattr(model, "space")):
+        return model
+    if hasattr(model, "channels_h"):
+        return FermionTensors.from_model(model, dtype, device)
+    if not hasattr(model, "h_h"):
+        raise NotImplementedError(
+            f"{entry} of a {type(model).__name__}: the port takes bosonic "
+            "square-lattice models, fermionic models (FermionModel, "
+            "FermionTensors; ROADMAP queue 1, item 10) and GradedFermionModel")
+    return ModelTensors.from_model(model, dtype, device)
+
+
 def bosonic_model_tensors(model, dtype, device, entry: str) -> ModelTensors:
     """ModelTensors of a bosonic square-lattice model (passed through when
-    it already is one); anything else is a fermionic model, which the port
-    takes with ROADMAP queue 1, item 10."""
+    it already is one), for the entries that take bosonic models only; a
+    fermionic model is refused: measuring it comes with the fermion
+    measurement slice (ROADMAP queue 1, item 10: ``measure_fermion``, the
+    fermion registry)."""
     if isinstance(model, ModelTensors):
         return model
     if not hasattr(model, "h_h"):
         raise NotImplementedError(
             f"{entry} of a {type(model).__name__}: fermionic models come "
-            "with ROADMAP queue 1, item 10")
+            "with the fermion measurement slice (ROADMAP queue 1, item 10: "
+            "measure_fermion and the fermion registry)")
     return ModelTensors.from_model(model, dtype, device)
 
 
@@ -400,6 +422,7 @@ class RatioTables(NamedTuple):
     psi_loc: torch.Tensor
     log_abs_psi: torch.Tensor
     psi_mant: torch.Tensor
+    holes: torch.Tensor | None = None   # [nc, Ly, Lx, u, l, d, r]
 
 
 def _log_abs_psi(stacks, tn):
@@ -410,14 +433,17 @@ def _log_abs_psi(stacks, tn):
 
 
 def compute_ratio_tables(tps, config, chi: int, trunc: TruncParams,
-                         need=("h",), with_holes: bool = True) -> RatioTables:
+                         need=("h",), with_holes: bool = True,
+                         stacks=None) -> RatioTables:
     """Every ratio table a model needs, for config [nc, Ly, Lx]. need: a
     subset of {"h", "v", "d", "ad"}; the one-site and horizontal tables are
     always formed (single-row sandwiches, K1), the others from the two-row
-    sandwiches (:func:`_pair_tables`, K3)."""
+    sandwiches (:func:`_pair_tables`, K3). stacks: optional env stacks of
+    these configurations, shared with the caller."""
     config = config.long()
     tn = project(tps, config)
-    stacks = bmps.all_env_stacks(tn, chi, trunc)
+    if stacks is None:
+        stacks = bmps.all_env_stacks(tn, chi, trunc)
     rp = _row_pass(tps, tn, config, None, stacks, want_h=True)
     o = o_tensor_of(rp.holes, rp.psi_loc, config, tps.shape[2]) \
         if with_holes else None
@@ -427,7 +453,7 @@ def compute_ratio_tables(tps, config, chi: int, trunc: TruncParams,
                             "d" in need, "ad" in need)
     log_abs, mant = _log_abs_psi(stacks, tn)
     return RatioTables(rp.ratio1, rp.ratio_h, tabs.v, tabs.d, tabs.ad, o,
-                       rp.psi_loc, log_abs, mant)
+                       rp.psi_loc, log_abs, mant, rp.holes)
 
 
 def apply_dress_to_tables(tables: RatioTables, dress,
@@ -457,7 +483,7 @@ def apply_dress_to_tables(tables: RatioTables, dress,
         tables.o_tensor, tables.psi_loc,
         tables.log_abs_psi + dress.log_factor(config).to(
             tables.log_abs_psi.dtype),
-        tables.psi_mant)
+        tables.psi_mant, tables.holes)
 
 
 def local_energy_and_holes_dressed(tps, config, model, dress, chi: int,

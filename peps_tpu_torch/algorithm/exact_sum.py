@@ -3,9 +3,10 @@ of the OBC bosonic part of ``peps_tpu/algorithm/exact_sum.py``).
 
 Enumerate the configurations, weight each by |psi|^2 and sum exactly. The
 configuration batch goes through the chain-batched local energy in pieces
-of ``batch_size`` (``torch.split``, where the reference uses ``lax.map``).
-Fermionic models come with ROADMAP queue 1, item 10, and periodic
-boundaries with item 11.
+of ``batch_size`` (``torch.split``, where the reference uses ``lax.map``):
+the bosonic one, the Jordan-Wigner one of a fermionic model, or the graded
+one of a ``GradedFermionModel``. Periodic boundaries come with ROADMAP
+queue 1, item 11.
 """
 from __future__ import annotations
 
@@ -16,8 +17,10 @@ import numpy as np
 import torch
 
 from peps_tpu_torch.algorithm.energy import (EnergyHoles,
-                                             bosonic_model_tensors,
-                                             local_energy_and_holes)
+                                             local_energy_and_holes,
+                                             model_tensors)
+from peps_tpu_torch.algorithm.energy_fermion import (
+    FermionTensors, local_energy_and_holes_fermion)
 from peps_tpu_torch.lattice import BoundaryCondition
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.optimizer.optimizer import Evaluation
@@ -82,14 +85,21 @@ class ExactSumResult(NamedTuple):
 
 def _evaluate(tps, configs, model, chi, trunc, with_holes, batch_size, bc):
     """EnergyHoles of every configuration, in pieces of batch_size."""
-    model = bosonic_model_tensors(model, tps.dtype, tps.device, "exact sum")
+    model = model_tensors(model, tps.dtype, tps.device, "exact sum")
+    if hasattr(model, "space"):
+        from peps_tpu_torch.fermion.vmc import local_energy_and_holes_graded
+        local = local_energy_and_holes_graded
+    elif isinstance(model, FermionTensors):
+        local = local_energy_and_holes_fermion
+    else:
+        local = local_energy_and_holes
     if bc != BoundaryCondition.OPEN:
         raise NotImplementedError(
             "exact sums with periodic boundaries: ROADMAP queue 1, item 11")
     configs = torch.as_tensor(configs, device=tps.device).long()
     pieces = torch.split(configs, batch_size) if batch_size else (configs,)
-    res = [local_energy_and_holes(tps, c, model, chi, trunc,
-                                  with_holes=with_holes) for c in pieces]
+    res = [local(tps, c, model, chi, trunc, with_holes=with_holes)
+           for c in pieces]
     return EnergyHoles(*(None if parts[0] is None else torch.cat(parts)
                          for parts in zip(*res)))
 

@@ -11,6 +11,13 @@ energies and holes over slices of that many chains; as in the reference,
 the env stacks stay at full chain batch, so it bounds only the table and
 hole intermediates. The reference's 1D flattening of the holes is a TPU
 tile-padding workaround and is not ported.
+
+Three kinds of model take this loop: bosonic ``ModelTensors``, fermionic
+models in the Jordan-Wigner representation (``FermionTensors``: the
+bosonic sweep and ratio tables with string signs) and graded fermionic
+states (``GradedFermionModel``: the env-shared graded sweep, without the
+carried bottom stacks, and the graded local energy, whose holes are the
+O entries at the configuration and go to K2 with psi_loc = 1).
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ import torch
 
 from peps_tpu_torch.algorithm.energy import (ModelTensors, _local_energy,
                                              o_tensor_of)
+from peps_tpu_torch.algorithm.energy_fermion import (FermionTensors,
+                                                     jw_tables_and_energy)
 from peps_tpu_torch.contraction import bmps
 from peps_tpu_torch.kernels.centered_o import centered_o
 from peps_tpu_torch.lattice import transpose_tps
@@ -45,24 +54,75 @@ class MCParams:
 UniformSource = Callable[[], tuple]
 
 
-def _mc_collect(tps, configs, model: ModelTensors, chi, trunc, n_samples,
+def _local_fn(tps, model, chi, trunc, with_grad):
+    """local(configs, stacks) -> (e_loc, holes [n, Ly, Lx, D, D, D, D] or
+    None, psi_loc [n, Ly, Lx] or None, log|psi|) of the model's kind."""
+    if isinstance(model, FermionTensors):
+        def local(c, stacks):
+            e, tabs = jw_tables_and_energy(tps, c, model, chi, trunc,
+                                           with_grad, stacks)
+            return e, tabs.holes, tabs.psi_loc, tabs.log_abs_psi
+        return local
+    from peps_tpu_torch.fermion.vmc import (GradedFermionModel,
+                                            graded_energy_and_holes)
+    if isinstance(model, GradedFermionModel):
+        def local(c, stacks):
+            e, holes, log_abs, _ = graded_energy_and_holes(
+                tps, c, model, chi, trunc, with_grad)
+            psi = None if holes is None else torch.ones(
+                holes.shape[:3], dtype=holes.dtype, device=holes.device)
+            return e, holes, psi, log_abs
+        return local
+
+    def local(c, stacks):
+        e, rp, log_abs, _ = _local_energy(tps, c, model, chi, trunc, stacks)
+        return e, rp.holes, rp.psi_loc, log_abs
+    return local
+
+
+def _sweep_fn(tps, model, chi, trunc, rule):
+    """sweep(configs, uniforms, bots) -> (configs', accepted, trials) of
+    the model's kind; bots None for the graded sweep, which builds its own
+    bottom stacks."""
+    from peps_tpu_torch.fermion.sweep import mc_sweep_fermion_shared
+    from peps_tpu_torch.fermion.vmc import GradedFermionModel
+    if isinstance(model, GradedFermionModel):
+        def sweep(configs, uniforms, bots):
+            configs, st = mc_sweep_fermion_shared(tps, model.space, configs,
+                                                  chi, trunc, uniforms)
+            return configs, st.accepted.sum(), st.trials.sum()
+        return sweep, False
+    tps_t = transpose_tps(tps)
+
+    def sweep(configs, uniforms, bots):
+        configs, st = mc_sweep(tps, tps_t, configs, chi, trunc,
+                               uniforms=uniforms, bots=bots, rule=rule)
+        return configs, st.accepted, st.trials
+    return sweep, True
+
+
+def _mc_collect(tps, configs, model, chi, trunc, n_samples,
                 with_sr, uniform_source, rule: UpdateRule = UpdateRule(),
                 sweeps_between: int = 1, with_grad: bool = True,
                 eval_chunk: int | None = None):
     """Sample loop: sweeps_between sweeps per sample step, the first one
-    from the evaluated network's bottom stack; the local energies and
-    holes of eval_chunk chains at a time (None: all). Returns (configs',
-    accepted, trials, outs) with outs a dict: e_locs [S, nc], log_psi
-    [S, nc]; with SR: holes [S, nc, Ly, Lx, D^4], psi_loc [S, nc, Ly, Lx],
-    cfgs [S, nc, Ly, Lx]; with a plain gradient: o_sum and eo_sum [P] (sums
-    of O and E_loc O over samples); with_grad=False keeps the energies
-    only."""
-    tps_t = transpose_tps(tps)
+    from the evaluated network's bottom stack (bosonic and JW models); the
+    local energies and holes of eval_chunk chains at a time (None: all).
+    Returns (configs', accepted, trials, outs) with outs a dict: e_locs
+    [S, nc], log_psi [S, nc]; with SR: holes [S, nc, Ly, Lx, D^4], psi_loc
+    [S, nc, Ly, Lx], cfgs [S, nc, Ly, Lx]; with a plain gradient: o_sum and
+    eo_sum [P] (sums of O and E_loc O over samples); with_grad=False keeps
+    the energies only."""
     ly, lx, d = tps.shape[0], tps.shape[1], tps.shape[2]
     configs = configs.long()
-    ftops, _ = bmps.all_top_envs(bmps.flip_vertical(project(tps, configs)),
-                                 chi, trunc)
-    bots = torch.flip(ftops, [-5])
+    sweep, shares_stacks = _sweep_fn(tps, model, chi, trunc, rule)
+    local = _local_fn(tps, model, chi, trunc, with_grad)
+    bots = None
+    if shares_stacks:
+        ftops, _ = bmps.all_top_envs(bmps.flip_vertical(project(tps,
+                                                                configs)),
+                                     chi, trunc)
+        bots = torch.flip(ftops, [-5])
     acc = torch.zeros((), dtype=torch.int64, device=tps.device)
     tri = torch.zeros_like(acc)
     outs = {"e_locs": [], "log_psi": [], "holes": [], "psi_loc": [],
@@ -70,30 +130,29 @@ def _mc_collect(tps, configs, model: ModelTensors, chi, trunc, n_samples,
     o_sum = eo_sum = None
     for _ in range(n_samples):
         for i in range(sweeps_between):
-            configs, st = mc_sweep(tps, tps_t, configs, chi, trunc,
-                                   uniforms=uniform_source(),
-                                   bots=bots if i == 0 else None, rule=rule)
-            acc = acc + st.accepted
-            tri = tri + st.trials
-        stacks = bmps.all_env_stacks(project(tps, configs), chi, trunc)
-        bots = stacks.bots
+            configs, a, t = sweep(configs, uniform_source(),
+                                  bots if i == 0 else None)
+            acc = acc + a
+            tri = tri + t
+        stacks = None
+        if shares_stacks:
+            stacks = bmps.all_env_stacks(project(tps, configs), chi, trunc)
+            bots = stacks.bots
         nc = configs.shape[0]
         step = {k: [] for k in ("e_locs", "log_psi", "holes", "psi_loc")}
         for sl in bmps.chain_slices(nc, eval_chunk):
             c = configs[sl]
-            e, rp, log_abs, _ = _local_energy(tps, c, model, chi, trunc,
-                                              bmps.sub_stacks(stacks, sl))
+            e, holes, psi_loc, log_abs = local(c, bmps.sub_stacks(stacks,
+                                                                  sl))
             step["e_locs"].append(e)
             step["log_psi"].append(log_abs)
             if not with_grad:
                 continue
             if with_sr:
-                step["holes"].append(rp.holes.reshape(c.shape[0], ly, lx,
-                                                      -1))
-                step["psi_loc"].append(rp.psi_loc)
+                step["holes"].append(holes.reshape(c.shape[0], ly, lx, -1))
+                step["psi_loc"].append(psi_loc)
             else:
-                o = o_tensor_of(rp.holes, rp.psi_loc, c, d) \
-                    .reshape(c.shape[0], -1)
+                o = o_tensor_of(holes, psi_loc, c, d).reshape(c.shape[0], -1)
                 step_o = o.conj().sum(0)
                 step_eo = (e[:, None] * o.conj()).sum(0)
                 o_sum = step_o if o_sum is None else o_sum + step_o
@@ -119,7 +178,7 @@ def _center_scale(holes, psi_loc, cfgs, d):
                       cfgs.reshape(ns, ly * lx), d)
 
 
-def mc_energy_only(tps, configs, model: ModelTensors, chi: int,
+def mc_energy_only(tps, configs, model, chi: int,
                    trunc: TruncParams, rule: UpdateRule, n_samples: int,
                    uniform_source: UniformSource, sweeps_between: int = 1,
                    eval_chunk: int | None = None):
@@ -132,7 +191,7 @@ def mc_energy_only(tps, configs, model: ModelTensors, chi: int,
     return mean_and_binned_error(outs["e_locs"].real)
 
 
-def mc_energy_grad(tps, configs, model: ModelTensors, chi: int,
+def mc_energy_grad(tps, configs, model, chi: int,
                    trunc: TruncParams, params: MCParams,
                    uniform_source: UniformSource,
                    with_sr_buffers: bool = False,

@@ -8,8 +8,11 @@ configurations, the rescue donors, every sweep's uniforms and the uniforms
 of the energy-only probes (step selector, Armijo line search). The parity
 tests replace the last two with the reference's replayed uniforms
 (``sweep_uniforms``, ``probe_uniforms``) and pass the reference's initial
-configurations. Open boundaries only: PBC (a ``bc`` field) and fermionic
-models come with ROADMAP queue 1, items 10-12.
+configurations. Bosonic models, fermionic models in the Jordan-Wigner
+representation (the bosonic sweep, e.g. Suwa-Todo with a conservation
+mask) and graded fermionic states (a ``GradedFermionModel``: the graded
+rescue, normalization and env-shared sweep). Open boundaries only: PBC (a
+``bc`` field) comes with ROADMAP queue 1, items 11-12.
 """
 from __future__ import annotations
 
@@ -18,17 +21,16 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from peps_tpu_torch.algorithm.energy import bosonic_model_tensors
-from peps_tpu_torch.algorithm.mc_evaluator import (MCParams, mc_energy_grad,
+from peps_tpu_torch.algorithm.energy import model_tensors
+from peps_tpu_torch.algorithm.mc_evaluator import (MCParams, _sweep_fn,
+                                                   mc_energy_grad,
                                                    mc_energy_only)
-from peps_tpu_torch.lattice import transpose_tps
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.montecarlo.engine import (ensure_validity,
                                               init_configs_occupancy,
                                               init_configs_uniform,
                                               normalize_state_order1)
-from peps_tpu_torch.montecarlo.sweep import UpdateRule, draw_uniforms, \
-    mc_sweep
+from peps_tpu_torch.montecarlo.sweep import UpdateRule, draw_uniforms
 from peps_tpu_torch.optimizer.optimizer import (MinSRParams, OptimizerParams,
                                                 SRParams, iterative_optimize)
 
@@ -60,8 +62,9 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
                  callback=None,
                  probe_uniforms: Callable[[], tuple] | None = None
                  ) -> VMCResult:
-    """Optimize a real or complex OBC TPS for a bosonic model, on
-    tps.device (the kernels take float32, float64, complex64 and
+    """Optimize a real or complex OBC TPS for a bosonic model, a JW
+    fermionic model or a graded fermionic state (``GradedFermionModel``),
+    on tps.device (the kernels take float32, float64, complex64 and
     complex128).
 
     generator: a ``torch.Generator`` on tps.device (default: seeded 0).
@@ -77,7 +80,8 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
     if getattr(model, "phys_dim", d) != d:
         raise ValueError(f"model physical dimension {model.phys_dim} != TPS "
                          f"physical dimension {d} (tps shape {tps.shape})")
-    mt = bosonic_model_tensors(model, tps.dtype, dev, "vmc_optimize")
+    mt = model_tensors(model, tps.dtype, dev, "vmc_optimize")
+    graded = hasattr(mt, "space")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     rdt = tps.real.dtype if tps.is_complex() else tps.dtype
@@ -97,14 +101,21 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
             configs = init_configs_uniform(generator, params.mc.nchains, ly,
                                            lx, d, dev)
     configs = configs.to(dev).long()
-    configs, _ = ensure_validity(tps, configs, generator, params.chi,
-                                 params.trunc)
-    tps = normalize_state_order1(tps, configs, params.chi, params.trunc)
-
-    tps_t = transpose_tps(tps)
+    if graded:
+        from peps_tpu_torch.fermion.vmc import (
+            ensure_validity_fermion, normalize_state_order1_fermion)
+        configs, _ = ensure_validity_fermion(tps, configs, generator,
+                                             mt.space, params.chi,
+                                             params.trunc)
+        tps = normalize_state_order1_fermion(tps, configs, mt.space,
+                                             params.chi, params.trunc)
+    else:
+        configs, _ = ensure_validity(tps, configs, generator, params.chi,
+                                     params.trunc)
+        tps = normalize_state_order1(tps, configs, params.chi, params.trunc)
+    sweep, _ = _sweep_fn(tps, mt, params.chi, params.trunc, params.rule)
     for _ in range(params.mc.num_warmup_sweeps):
-        configs, _ = mc_sweep(tps, tps_t, configs, params.chi, params.trunc,
-                              uniforms=sweep_uniforms(), rule=params.rule)
+        configs, _, _ = sweep(configs, sweep_uniforms(), None)
 
     sampler = {"configs": configs}
     needs_sr = isinstance(params.optimizer.algorithm,

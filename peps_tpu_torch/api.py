@@ -1,10 +1,12 @@
 """One-call import surface of the port (port of ``peps_tpu/api.py``).
 
 It holds the names of the reference's ``__all__`` that the port has so
-far; later slices add the rest.
+far; later slices add the rest (``tj_singlet_pair_corr_row`` comes with the
+fermion measurement, and the PBC and loop-update names with theirs).
 """
 from __future__ import annotations
 
+from peps_tpu_torch.algorithm.energy_fermion import FermionTensors
 from peps_tpu_torch.algorithm.energy import (ModelTensors,
                                              local_energy_and_holes_dressed,
                                              psi_consistency_check)
@@ -23,7 +25,16 @@ from peps_tpu_torch.algorithm.vmc_optimize import (VMCParams, VMCResult,
 from peps_tpu_torch.contraction.bmps import entanglement_entropy
 from peps_tpu_torch.lattice import BoundaryCondition
 from peps_tpu_torch.linalg import TruncParams
-from peps_tpu_torch.models import spin
+from peps_tpu_torch.fermion.convert import fermion_project
+from peps_tpu_torch.fermion.peps import (FermionSpace, fermion_simple_update,
+                                         product_fermion_peps,
+                                         space_for_model, to_tps_fermion)
+from peps_tpu_torch.fermion.tables import fermion_ratio_tables
+from peps_tpu_torch.fermion.vmc import (GradedFermionModel, amplitude_fermion,
+                                        local_energy_and_holes_graded,
+                                        mc_sweep_fermion)
+from peps_tpu_torch.fermion.sweep import mc_sweep_fermion_shared
+from peps_tpu_torch.models import fermion, spin
 from peps_tpu_torch.montecarlo.engine import (init_configs_occupancy,
                                               init_configs_uniform,
                                               load_configs, save_configs)
@@ -52,9 +63,14 @@ __all__ = [
     "PEPS", "SimpleUpdateParams", "product_peps", "simple_update", "to_tps",
     "random_tps", "project", "save_tps", "load_tps",
     "simple_update_nnn", "simple_update_triangle",
-    "spin", "ModelTensors",
+    "fermion", "spin", "FermionTensors", "ModelTensors",
     "local_energy_and_holes_dressed", "psi_consistency_check",
     "exact_sum_measure", "JastrowDress", "load_configs", "save_configs",
     "wavefunction_sum", "expand_bond_dim", "entanglement_entropy",
-    "Observable", "structure_factor_spsm_row",
+    "Observable", "structure_factor_spsm_row", "fermion_ratio_tables",
+    "FermionSpace", "space_for_model", "product_fermion_peps",
+    "fermion_simple_update", "to_tps_fermion", "fermion_project",
+    "GradedFermionModel", "amplitude_fermion",
+    "local_energy_and_holes_graded", "mc_sweep_fermion",
+    "mc_sweep_fermion_shared",
 ]

@@ -35,5 +35,31 @@ def model_tensors_from_numpy(model, device=None, dtype=None) -> ModelTensors:
     return ModelTensors.from_model(model, dtype, device)
 
 
+def fermion_space_from(space):
+    """The port's FermionSpace of a JAX ``FermionSpace`` (static tuples)."""
+    from peps_tpu_torch.fermion.peps import FermionSpace
+    return FermionSpace(tuple(int(p) for p in space.phys_parity),
+                        int(space.d_even), int(space.d_odd))
+
+
+def u1_charges_from(charges):
+    """The port's U1Charges of a JAX ``U1Charges`` (static tuples)."""
+    from peps_tpu_torch.fermion.peps import U1Charges
+    return U1Charges(tuple(charges.phys_charge), tuple(charges.bond_charge),
+                     tuple(tuple(k) for k in charges.keep),
+                     tuple(tuple(int(v) for v in row)
+                           for row in charges.kappa))
+
+
+def graded_state_from_numpy(gammas, lam_v, lam_h, space, charges=None,
+                            device=None, dtype=None):
+    """A graded state of the JAX package: its Gamma/Lambda PEPS (as numpy),
+    FermionSpace and optional U1Charges -> (PEPS, FermionSpace, U1Charges
+    or None) of the port."""
+    return (peps_from_numpy(gammas, lam_v, lam_h, device, dtype),
+            fermion_space_from(space),
+            None if charges is None else u1_charges_from(charges))
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()

@@ -7,5 +7,9 @@ centered SR sample matrix. K3 ``pair_transfer`` (CUDA C++,
 pair passes. Each takes float32 and float64 (real bodies) and complex64
 and complex128: K2 in a separate complex body, K1 and K3 in their one
 kernel template on the shared complex tile products
-(``csrc/complex_tiles.cuh``).
+(``csrc/complex_tiles.cuh``). K4 ``fermion_dress`` (CUDA C++,
+``csrc/fermion_dress.cu``): the fermionic sign dressing of a graded TPS
+(projection, prefix-flipped projection and candidates), all four dtypes.
+K1 also has a backward (:class:`~peps_tpu_torch.kernels.col_transfer.
+ColTransferFunction`) whose transfers are K1 launches.
 """

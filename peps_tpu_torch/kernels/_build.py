@@ -73,6 +73,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
+    for name in ("fermion_dress_f32", "fermion_dress_f64",
+                 "fermion_dress_c64", "fermion_dress_c128"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
     lib.peps_cuda_error_string.argtypes = [ctypes.c_int]
     lib.peps_cuda_error_string.restype = ctypes.c_char_p
 

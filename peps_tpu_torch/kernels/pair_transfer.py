@@ -364,6 +364,9 @@ def pair_transfer(env, top, row1, row2, bot):
         raise RuntimeError(f"pair_transfer runs on cpu or cuda, not "
                            f"{env.device}")
     from peps_tpu_torch.kernels._build import check, cuda_library
+    # a lazily conjugated or negated view holds other values than its data
+    env, top, row1, row2, bot = (t.resolve_conj().resolve_neg()
+                                 for t in (env, top, row1, row2, bot))
     batch, meta = launch_meta(env, top, row1, row2, bot)
     fn = getattr(cuda_library().lib, entry_name(env.dtype))
     out = torch.empty(*batch, top.shape[-1], row1.shape[-1], row2.shape[-1],

@@ -804,3 +804,100 @@ def test_cluster_simple_update_on_the_card_matches_the_cpu(dev):
                   params).peps for where in ("cpu", dev)]
         assert _rel(out[1].lam_h.cpu(), out[0].lam_h) < 1e-8
         assert _rel(out[1].lam_v.cpu(), out[0].lam_v) < 1e-8
+
+
+# ------------------------------------------------------------------ K4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
+def test_fermion_dress_equals_plain_exactly(dev, dtype):
+    """K4 in its three outputs (projection with both flags, one row's
+    candidates, a gradient undressed through a stride-0 physical axis)
+    against its plain version: a multiply by +-1, so exactly equal."""
+    from peps_tpu_torch.fermion.convert import dress_tables
+    from peps_tpu_torch.fermion.peps import FermionSpace
+    from peps_tpu_torch.kernels import fermion_dress as k4
+    gen = torch.Generator().manual_seed(7)
+    ly, lx, d, D, nc = 4, 5, 3, 4, 6
+    sp = FermionSpace((0, 1, 1), 2, 2)
+    tab = dress_tables(sp, ly, lx)
+    tps = torch.randn(ly, lx, d, D, D, D, D, generator=gen,
+                      dtype=torch.float64).to(dtype)
+    cfg = torch.randint(0, d, (nc, ly, lx), generator=gen)
+    wide = torch.randn(nc, ly, lx, D, D, D, D, generator=gen,
+                       dtype=torch.float64).to(dtype)
+    wide = wide.unsqueeze(3).expand(-1, -1, -1, d, -1, -1, -1, -1)
+    for args, kw in (((tps,), {"select_config": True}),
+                     ((tps,), {"y0": 2, "ny": 1}),
+                     ((tps,), {}),
+                     ((wide,), {"select_config": True, "nf": 1})):
+        before = k4.fermion_dress.launches
+        out = k4.fermion_dress(args[0].to(dev), cfg.to(dev), tab, **kw)
+        assert k4.fermion_dress.launches == before + 1
+        ref = k4.fermion_dress_plain(args[0], cfg, tab, **kw)
+        assert torch.equal(out.cpu(), ref)
+
+
+# ---------------------------------------------------------- K1 backward
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
+def test_col_transfer_backward_equals_plain_autograd(dev, dtype):
+    """The gradients of every K1 input through ColTransferFunction (three
+    of them K1 launches) against autograd of col_transfer_plain, at a
+    broadcast batch like the sketch scans'."""
+    gen = torch.Generator().manual_seed(3)
+    tol = 1e-5 if dtype in (torch.float32, torch.complex64) else 1e-12
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen,
+                           dtype=torch.float64).to(dtype)
+
+    chi, D = 12, 4
+    ops = [r(3, chi, D, chi), r(3, chi, D, chi), r(3, D, D, D, D),
+           r(chi, D, chi)]
+    w = r(3, chi, D, chi)
+    grads = {}
+    for where in ("cpu", dev):
+        xs = [o.detach().to(where).requires_grad_(True) for o in ops]
+        before = k1.col_transfer.backward_launches
+        out = k1.col_transfer(*xs) if where == dev else \
+            k1.col_transfer_plain(*xs)
+        (out * w.to(where)).real.sum().backward()
+        if where == dev:
+            assert k1.col_transfer.backward_launches == before + 3
+        grads[str(where)] = [x.grad.cpu() for x in xs]
+    for a, b in zip(grads[str(dev)], grads["cpu"]):
+        assert _rel(a, b) <= tol
+
+
+def test_graded_local_energy_on_the_card_matches_the_cpu(dev):
+    """The graded t-J local energy and holes (K4, K1 and its backward, K3)
+    of a seeded 3x3 D=4 state in complex128 at chi = 3: within 1e-10 of
+    the CPU's."""
+    from peps_tpu_torch.fermion.peps import FermionSpace
+    from peps_tpu_torch.fermion.vmc import (GradedFermionModel,
+                                            local_energy_and_holes_graded)
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models.fermion import tj_model
+    gen = torch.Generator().manual_seed(9)
+    sp = FermionSpace((0, 1, 1), 2, 2)
+    tps = torch.complex(torch.randn(3, 3, 3, 4, 4, 4, 4, generator=gen,
+                                    dtype=torch.float64),
+                        torch.randn(3, 3, 3, 4, 4, 4, 4, generator=gen,
+                                    dtype=torch.float64))
+    cfg = torch.stack([torch.randperm(9, generator=gen) % 3
+                       for _ in range(4)]).reshape(4, 3, 3)
+    # chi = 3 truncates every boundary (rank 4 and more): where a sketch
+    # Gram is rank-deficient the holes move with the summation order
+    trunc = TruncParams(3, 1, 1e-12, scheme="sketch")
+    res = []
+    for where in ("cpu", dev):
+        gm = GradedFermionModel.from_model(tj_model(3.0, 1.0, t2=0.5), sp,
+                                           tps.dtype, where)
+        res.append(local_energy_and_holes_graded(
+            tps.to(where), cfg.to(where), gm, 3, trunc))
+    for f in ("e_loc", "o_tensor", "log_abs_psi"):
+        assert _rel(getattr(res[1], f).cpu(), getattr(res[0], f)) < 1e-10

@@ -72,6 +72,64 @@ def test_runs_without_jax():
     assert proc.stdout.startswith("OK")
 
 
+NO_JAX_FERMIONS = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+import numpy as np
+import torch
+import peps_tpu_torch.api as api
+from peps_tpu_torch.optimizer.cg import CGParams
+from peps_tpu_torch.fermion.peps import (FermionSpace, expand_bond_dim_graded,
+                                         u1_charges_for)
+m = api.fermion.tj_model(3.0, 1.0)
+sp = api.space_for_model(m, 2)
+occ = np.array([[1, 2, 1], [2, 0, 0]])
+p0 = api.product_fermion_peps(2, 3, sp, occ, device="cpu")
+su = api.fermion_simple_update(
+    p0, m, sp, api.SimpleUpdateParams(3, 0.2, api.TruncParams(2, 1, 1e-12)),
+    charges=u1_charges_for(m, sp, occ))
+new = FermionSpace(sp.phys_parity, 2, 2)
+tps = expand_bond_dim_graded(api.to_tps_fermion(su.peps), sp, new, 1e-3,
+                             torch.Generator().manual_seed(0))
+gm = api.GradedFermionModel.from_model(m, new, tps.dtype, "cpu")
+params = api.VMCParams(4, api.TruncParams(4, 1, 1e-8, scheme="sketch"),
+                       api.MCParams(num_samples=1, num_warmup_sweeps=1,
+                                    nchains=2),
+                       api.OptimizerParams(1, api.SRParams(CGParams(5, 1e-6)),
+                                           lr=0.05),
+                       occupancy=((0, 2), (1, 2), (2, 2)))
+res = api.vmc_optimize(tps, gm, params, torch.Generator().manual_seed(0))
+assert np.isfinite(res.energies[0]), res.energies
+hub = api.fermion.hubbard(1.0, 4.0)
+jw = api.vmc_optimize(api.random_tps(torch.Generator().manual_seed(1), 2, 2,
+                                     4, 2, torch.float64, device="cpu"),
+                      hub, api.VMCParams(
+                          4, params.trunc, params.mc, params.optimizer,
+                          api.UpdateRule("suwa_todo",
+                                         api.fermion.hubbard_conserve_mask()),
+                          occupancy=((1, 2), (2, 2))),
+                      torch.Generator().manual_seed(0))
+assert np.isfinite(jw.energies[0]), jw.energies
+leaked = sorted(k for k in sys.modules
+                if k == "peps_tpu" or k.startswith("peps_tpu.")
+                or (k.startswith("jax") and sys.modules[k] is not None))
+assert not leaked, leaked
+print("OK", res.energies[0], jw.energies[0])
+"""
+
+
+def test_fermions_run_without_jax():
+    """The fermion slice through the user entry points without JAX: graded
+    SU with U(1) charges, to_tps_fermion, expand_bond_dim_graded, SR on a
+    GradedFermionModel, and a JW Hubbard SR step with Suwa-Todo."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", NO_JAX_FERMIONS],
+                          capture_output=True, text=True, env=env, cwd=REPO,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
+
+
 def test_package_imports_no_jax_module():
     for path in (REPO / "peps_tpu_torch").rglob("*.py"):
         text = path.read_text()
@@ -183,3 +241,25 @@ def test_plain_versions_on_cpu_count_no_launch():
                      site, x)
     assert (k1.col_transfer.launches, k2.centered_o.launches,
             k3.pair_transfer.launches) == before
+
+
+def test_fermion_dress_ships_and_launches_or_raises_on_cuda(monkeypatch):
+    """K4's source ships in csrc with its four C entries; a CUDA tensor
+    goes down the launch path (raising here, without CUDA), never to the
+    plain version, and an unknown dtype is refused."""
+    from peps_tpu_torch.fermion.convert import dress_tables
+    from peps_tpu_torch.fermion.peps import FermionSpace
+    from peps_tpu_torch.kernels import fermion_dress as k4
+    text = (REPO / "peps_tpu_torch" / "csrc" / "fermion_dress.cu").read_text()
+    assert 'extern "C"' in text and all(
+        f"fermion_dress_{s}" in text for s in ("f32", "f64", "c64", "c128"))
+    monkeypatch.setattr(k4, "fermion_dress_plain", _no_plain)
+    tab = dress_tables(FermionSpace((0, 1, 1), 1, 1), 2, 2)
+    cfg = _cuda_like(1, 2, 2, dtype=torch.int64)
+    before = k4.fermion_dress.launches
+    with pytest.raises((RuntimeError, OSError)):
+        k4.fermion_dress(_cuda_like(2, 2, 3, 2, 2, 2, 2), cfg, tab)
+    with pytest.raises(TypeError):
+        k4.fermion_dress(_cuda_like(2, 2, 3, 2, 2, 2, 2, dtype=torch.int32),
+                         cfg, tab)
+    assert k4.fermion_dress.launches == before
