@@ -234,9 +234,7 @@ FLAG = {"L": 6, "D_su": 4, "D": 8, "chi": 32, "nchains": 32, "chunk": 8,
 # phase 10 (c): SMALL's lattice, D and chains at chi = 6, which truncates
 # every boundary past the first row; at chi = 16 the edge rows' sketch
 # Grams are rank 4 in 16, held only by the 1e-12 jitter, and the holes
-# (autograd through them) move by 4e-10 (complex128) to 1e-7 (float64)
-# between any two summation orders (the port's CPU path against the JAX
-# package's, PERF.md)
+# (autograd through them) move with the summation order beyond 1e-10
 FERMION_CARD_CPU_CHI = 6
 HUBBARD = {"ly": 2, "lx": 4, "D": 4, "chi": 16, "nchains": 64,
            "samples": 10, "warmup": 20, "sr_iters": 2}
