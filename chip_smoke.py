@@ -236,6 +236,12 @@ FLAG = {"L": 6, "D_su": 4, "D": 8, "chi": 32, "nchains": 32, "chunk": 8,
 # Grams are rank 4 in 16, held only by the 1e-12 jitter, and the holes
 # (autograd through them) move with the summation order beyond 1e-10
 FERMION_CARD_CPU_CHI = 6
+# phase 10 (b)'s float32 evaluation against float64 at float32's sketch
+# jitter on the card at the flagship's shape: relative Frobenius
+# differences, 4-11x the first card readings (8.8e-6, 1.1e-3, 5.4e-3;
+# PERF.md section 6) and below the 5.5e-2 and 3.8e-2 that the jitter
+# itself moves O and the SR direction by
+GRADED_F32_TOL = {"energy": 1e-4, "o_samples": 1e-2, "sr_direction": 2e-2}
 HUBBARD = {"ly": 2, "lx": 4, "D": 4, "chi": 16, "nchains": 64,
            "samples": 10, "warmup": 20, "sr_iters": 2}
 # phase 2's K4 cases (6x6, D=8, t-J's d=3, 32 chains): the projection, the
@@ -2029,12 +2035,32 @@ def phase_bosonic_close(res, device):
 # fermions: phase 2's K4 and K1-backward cases, and phase 10
 # ---------------------------------------------------------------------------
 
+def k4_bytes(tps, cfg, out, select_config=False, y0=0, ny=None, **_):
+    """The bytes one K4 call must move: the tps slabs it reads (the rows
+    [y0, y0+ny) at every value a; with select_config the distinct
+    (y, x, a) slabs the chains' configurations select there), the
+    configurations read once and the output written once."""
+    import torch
+    ly, lx, d = tps.shape[:3]
+    ny = ly - y0 if ny is None else ny
+    slab = tps[0, 0, 0].numel()
+    if select_config:
+        rows = cfg[:, y0:y0 + ny].long()
+        site = torch.arange(ny * lx, device=cfg.device).reshape(ny, lx)
+        slabs = int(torch.unique(site * d + rows).numel())
+    else:
+        slabs = ny * lx * d
+    return (slabs * slab + out.numel()) * tps.element_size() \
+        + cfg.numel() * cfg.element_size()
+
+
 def k4_phase(device, gen):
     """Phase 2, K4 (fermion_dress): its three outputs at 6x6, D=8, d=3,
     32 chains in all four dtypes against the plain version (exactly equal:
     a multiply by +-1), timed in turns with the plain version and a copy_
-    of the output's bytes; the bound is the bytes (tps, configurations and
-    the output) over 3.35 TB/s. Returns the record of the float32
+    of the output's bytes; the bound is the bytes (the tps slabs the call
+    reads, the configurations and the output: :func:`k4_bytes`) over
+    3.35 TB/s. Returns the record of the float32
     candidates of one row (the sampler's per-row call)."""
     import torch
     from peps_tpu_torch.fermion.convert import dress_tables
@@ -2061,8 +2087,7 @@ def k4_phase(device, gen):
                            "plain": lambda: k4.fermion_dress_plain(
                                tps, cfg, tab, **kw),
                            "copy": lambda: dst.copy_(src)}, 10)
-            nbytes = (tps.numel() + out.numel()) * tps.element_size() \
-                + cfg.numel() * cfg.element_size()
+            nbytes = k4_bytes(tps, cfg, out, **kw)
             bound_ms = nbytes / HBM_BPS * 1e3
             r = {"kernel": "fermion_dress", "case": name, "dtype": dt,
                  "out_shape": list(out.shape), "exact": exact,
@@ -2110,8 +2135,9 @@ def k1_backward_cases(dtype, device, gen):
 def k1_backward_work(views, needs, g):
     """(flops, bytes) of one backward of K1 on left-form views: the three
     transfer-shaped gradients asked for (K1's three products each) and the
-    site gradient's (env.top)(bot.g) grouping; the inputs and g read once,
-    the gradients written once."""
+    site gradient's (env.top)(bot.g) grouping, env.top at the batch env and
+    top broadcast to; the inputs and g read once, the gradients written
+    once."""
     import torch
     from peps_tpu_torch.kernels import col_transfer as k1
     env, top, site, bot = views
@@ -2129,13 +2155,17 @@ def k1_backward_work(views, needs, g):
                               dtype=env.dtype)
             flops += k1_work(*ops, out)[0]
     if needs[2]:
+        # env.top at env and top's broadcast batch (a site candidate dim
+        # they broadcast over is not multiplied), bot.g and the join at g's
         na, nl, nc = env.shape[-3:]
         nu, nA = top.shape[-2:]
         nd, nr = site.shape[-2:]
         nC = bot.shape[-1]
+        lt_items = math.prod(torch.broadcast_shapes(env.shape[:-3],
+                                                    top.shape[:-3]))
         items = math.prod(g.shape[:-3])
-        macs = items * (na * nl * nc * nu * nA + nc * nd * nC * nA * nr
-                        + nl * nc * nu * nA * nd * nr)
+        macs = lt_items * na * nl * nc * nu * nA \
+            + items * (nc * nd * nC * nA * nr + nl * nc * nu * nA * nd * nr)
         flops += 2 * macs * (4 if env.is_complex() else 1)
     ins = sum(t.numel() for t in (*views, g))
     outs = sum(t.numel() for t, n in zip(views, needs) if n)
@@ -2214,6 +2244,21 @@ def k1_backward_phase(device, peak, gen):
     return rec
 
 
+def fermion_counts():
+    """K1 (forward and backward), K2, K3 and K4's launch counters as they
+    stand (not reset)."""
+    from peps_tpu_torch.kernels.centered_o import centered_o
+    from peps_tpu_torch.kernels.col_transfer import col_transfer
+    from peps_tpu_torch.kernels.fermion_dress import fermion_dress
+    from peps_tpu_torch.kernels.pair_transfer import pair_transfer
+    return {"col_transfer_forward": col_transfer.launches
+            - col_transfer.backward_launches,
+            "col_transfer_backward": col_transfer.backward_launches,
+            "centered_o": centered_o.launches,
+            "pair_transfer": pair_transfer.launches,
+            "fermion_dress": fermion_dress.launches}
+
+
 def fermion_counters():
     """K1 (forward and backward), K2, K3 and K4's launch counters, set to
     0; returns a reader of {name: launches since}."""
@@ -2224,15 +2269,7 @@ def fermion_counters():
     for k in (col_transfer, centered_o, pair_transfer, fermion_dress):
         k.launches = 0
     col_transfer.backward_launches = 0
-
-    def read():
-        return {"col_transfer_forward": col_transfer.launches
-                - col_transfer.backward_launches,
-                "col_transfer_backward": col_transfer.backward_launches,
-                "centered_o": centered_o.launches,
-                "pair_transfer": pair_transfer.launches,
-                "fermion_dress": fermion_dress.launches}
-    return read
+    return fermion_counts
 
 
 def fermion_product_energy(model, occ):
@@ -2266,7 +2303,9 @@ def phase_fermions(device):
     float32. The SU estimate per site below the Neel state's, every SR
     iteration's E/site in (-1.35, that), N_up = N_dn = 17 in every chain,
     acceptance above 0, every kernel launched (K1 forward and backward,
-    K2, K3, K4). (c) The card against the CPU: graded t-J at 4x4, D=4,
+    K2, K3, K4); then where an iteration's time goes (graded_breakdown)
+    and float32's evaluation against float64's at the same jitter
+    (graded_precision). (c) The card against the CPU: graded t-J at 4x4, D=4,
     chi=6 (FERMION_CARD_CPU_CHI), 8 chains, complex128 and float64, one
     SR evaluation on the same uniforms: energy, O buffer and SR direction
     within 1e-10. Returns the launches of (a), the SU and (b)."""
@@ -2429,6 +2468,7 @@ def phase_fermions(device):
     if missing:
         fail(f"graded VMC: kernels not launched: {missing}")
     graded_breakdown(res, gm, vp, device)
+    graded_precision(res, model, space8, vp, device)
 
     # (c) the card against the CPU
     ly, lx, dd, nc = (SMALL[k] for k in ("ly", "lx", "D", "nchains"))
@@ -2487,59 +2527,172 @@ def phase_fermions(device):
 
 
 def graded_breakdown(res, gm, vp, device):
-    """Where a graded SR iteration's time goes, on the optimized state and
-    final configurations (synchronized host clock, the launch counters
-    read per part): one sweep of every chain; per eval chunk the holes
-    (autograd through the top stack, undressed by K4) and the tables and
-    E_loc (the env stacks of the other frame, the pair envs); K2 and the
-    SR solve (CG 40) of the evaluation's buffers."""
+    """Where a graded SR iteration's time goes: one real mc_energy_grad
+    (the phase's MCParams without the warm-up, SR buffers) and
+    sr_natural_gradient on the optimized state and final configurations,
+    with the functions the evaluator calls wrapped where it looks them up:
+    the sweep (fermion.sweep.mc_sweep_fermion_shared), the local energy
+    and holes (fermion.vmc.graded_energy_and_holes) and inside it the holes
+    (fermion.vmc._holes: autograd through the top stack, undressed by K4)
+    and the tables (fermion.tables.fermion_ratio_tables), and K2
+    (mc_evaluator._center_scale). Each wrapper synchronizes the card and
+    reads the host clock and the launch counters around its call. Parts
+    are exclusive: "local_rest" is the local energy less its holes and
+    tables (the dressed nets, the flipped top stack, the channel sums),
+    "evaluator_rest" the evaluation less its sweep, local energies and K2.
+    Returns the record."""
     import torch
-    from peps_tpu_torch.algorithm.mc_evaluator import _center_scale
-    from peps_tpu_torch.fermion.sweep import mc_sweep_fermion_shared
-    from peps_tpu_torch.fermion.vmc import _holes, graded_energy_and_holes
-    from peps_tpu_torch.optimizer.cg import CGParams, cg_solve
+    from peps_tpu_torch.algorithm import mc_evaluator
+    from peps_tpu_torch.algorithm.mc_evaluator import MCParams
+    from peps_tpu_torch.fermion import sweep as fsweep
+    from peps_tpu_torch.fermion import tables as ftables
+    from peps_tpu_torch.fermion import vmc as fvmc
+    from peps_tpu_torch.montecarlo.sweep import draw_uniforms
+    from peps_tpu_torch.optimizer.optimizer import sr_natural_gradient
     tps, cfg = res.state, res.final_configs
-    chi, trunc, chunk = vp.chi, vp.trunc, vp.mc.eval_chunk
-    parts, launches = {}, {}
-
-    def timed(name, fn):
-        read = fermion_counters()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
-        launches[name] = {k: launches.get(name, {}).get(k, 0) + v
-                          for k, v in read().items()}
-        return out
-
-    gen = torch.Generator(device=device).manual_seed(8)
-    timed("sweep", lambda: mc_sweep_fermion_shared(
-        tps, gm.space, cfg, chi, trunc, generator=gen))
-    holes = []
-    for sl in range(0, cfg.shape[0], chunk):
-        c = cfg[sl:sl + chunk]
-
-        def hole():
-            from peps_tpu_torch.fermion.convert import fermion_project
-            return _holes(tps, c, gm.space, chi, trunc,
-                          fermion_project(tps, c, gm.space))[0]
-        holes.append(timed("holes", hole))
-        timed("tables_and_e_loc", lambda: graded_energy_and_holes(
-            tps, c, gm, chi, trunc, with_holes=False))
-    h = torch.cat(holes)
     ly, lx = tps.shape[0], tps.shape[1]
-    ones = torch.ones(h.shape[:3], dtype=h.dtype, device=h.device)
-    a = timed("k2", lambda: _center_scale(h.reshape(1, h.shape[0], ly, lx,
-                                                    -1), ones[None],
-                                          cfg[None], tps.shape[2]))
-    g = torch.randn(a.shape[1], generator=gen, device=device,
-                    dtype=a.dtype)
-    timed("sr_solve", lambda: cg_solve(
-        lambda v: a.mH @ (a @ v) + 1e-3 * v, g, None, CGParams(40, 1e-5)))
-    total = sum(parts.values())
-    log("fermions", step="graded_breakdown", seconds=parts,
-        share={k: v / total for k, v in parts.items()}, launches=launches)
+    incl, counts = {}, {}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            c0 = fermion_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            incl[name] = incl.get(name, 0.0) + time.perf_counter() - t0
+            c1 = fermion_counts()
+            counts[name] = {k: counts.get(name, {}).get(k, 0) + c1[k] - c0[k]
+                            for k in c1}
+            return out
+        return timed
+
+    targets = ((fsweep, "mc_sweep_fermion_shared", "sweep"),
+               (fvmc, "graded_energy_and_holes", "local"),
+               (fvmc, "_holes", "holes"),
+               (ftables, "fermion_ratio_tables", "tables"),
+               (mc_evaluator, "_center_scale", "k2"))
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+    gen = torch.Generator(device=device).manual_seed(8)
+    mc = MCParams(num_samples=1, num_warmup_sweeps=0,
+                  nchains=vp.mc.nchains, eval_chunk=vp.mc.eval_chunk)
+    try:
+        for mod, attr, name in targets:
+            setattr(mod, attr, wrap(name, getattr(mod, attr)))
+        evaluate = wrap("evaluation", mc_evaluator.mc_energy_grad)
+        ev, _, _ = evaluate(
+            tps, cfg, gm, vp.chi, vp.trunc, mc,
+            lambda: draw_uniforms(gen, cfg.shape[0], ly, lx, torch.float32,
+                                  device), with_sr_buffers=True)
+        wrap("sr_solve", sr_natural_gradient)(ev, vp.optimizer.algorithm,
+                                               tps.shape)
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+    def less(name, *parts):
+        return {"seconds": incl[name] - sum(incl[p] for p in parts),
+                "launches": {k: counts[name][k]
+                             - sum(counts[p][k] for p in parts)
+                             for k in counts[name]}}
+
+    parts = {n: {"seconds": incl[n], "launches": counts[n]}
+             for n in ("sweep", "holes", "tables", "k2", "sr_solve")}
+    parts["local_rest"] = less("local", "holes", "tables")
+    parts["evaluator_rest"] = less("evaluation", "sweep", "local", "k2")
+    total = incl["evaluation"] + incl["sr_solve"]
+    rec = {"seconds_total": total,
+           "evaluation_s": incl["evaluation"],
+           "seconds": {k: v["seconds"] for k, v in parts.items()},
+           "share": {k: v["seconds"] / total for k, v in parts.items()},
+           "launches": {k: v["launches"] for k, v in parts.items()}}
+    log("fermions", step="graded_breakdown", **rec)
+    return rec
+
+
+def graded_precision(res, model, space, vp, device):
+    """Phase 10 (b)'s holes in the regime it runs in (6x6, D=8, chi=32,
+    sketch, where the edge rows' sketch Grams are rank deficient and held
+    by the jitter) on the optimized state and final configurations: one
+    mc_energy_grad with no sweep before its sample
+    (sweeps_between_samples 0: E_loc and O of the same 32
+    configurations, eval_chunk 8) and sr_natural_gradient (the phase's CG
+    40, shift 1e-3), on the card in float32, in float64, and in float64
+    with float32's sketch jitter (1e-5 relative in place of 1e-12;
+    ``bmps._sketch_pinv_apply`` wrapped). The float32 energy, O buffer and
+    SR direction are held against float64 at the same jitter (the
+    derivative of the same map: float32 round-off only) within
+    GRADED_F32_TOL; against float64 at its own jitter they are read, not
+    gated (the jitter is the reference's own choice for each dtype). Also
+    read: one graded sweep in each dtype on the same uniforms (drawn in
+    float64, float32 takes them rounded), and how many chains end in other
+    configurations."""
+    import torch
+    from peps_tpu_torch.algorithm.mc_evaluator import MCParams, mc_energy_grad
+    from peps_tpu_torch.contraction import bmps
+    from peps_tpu_torch.fermion.sweep import mc_sweep_fermion_shared
+    from peps_tpu_torch.fermion.vmc import GradedFermionModel
+    from peps_tpu_torch.montecarlo.sweep import draw_uniforms
+    from peps_tpu_torch.optimizer.optimizer import sr_natural_gradient
+    tps, cfg = res.state, res.final_configs
+    ly, lx = tps.shape[0], tps.shape[1]
+    mc = MCParams(num_samples=1, num_warmup_sweeps=0,
+                  sweeps_between_samples=0, nchains=vp.mc.nchains,
+                  eval_chunk=vp.mc.eval_chunk)
+    pinv = bmps._sketch_pinv_apply
+
+    def evaluate(dt):
+        gm = GradedFermionModel.from_model(model, space, dt, device)
+        t0 = time.perf_counter()
+        ev, _, _ = mc_energy_grad(tps.to(dt), cfg, gm, vp.chi, vp.trunc, mc,
+                                  None, with_sr_buffers=True)
+        nat, cg = sr_natural_gradient(ev, vp.optimizer.algorithm, tps.shape)
+        torch.cuda.synchronize()
+        return {"energy": ev.energy.double(), "e_samples": ev.e_samples,
+                "o_samples": ev.o_samples, "sr_direction": nat,
+                "cg": int(cg.iterations), "s": time.perf_counter() - t0}
+
+    runs = {"float32": evaluate(torch.float32),
+            "float64": evaluate(torch.float64)}
+    try:
+        bmps._sketch_pinv_apply = lambda a, w, eps_rel: pinv(a, w, 1e-5)
+        runs["float64_jitter_1e-5"] = evaluate(torch.float64)
+    finally:
+        bmps._sketch_pinv_apply = pinv
+
+    def diffs(x, y):
+        x, y = runs[x], runs[y]
+        d = {k: _rel_diff(x[k].to(y[k].dtype), y[k])
+             for k in ("energy", "e_samples", "o_samples", "sr_direction")}
+        d["o_samples_max_abs_rel"] = (
+            (x["o_samples"].double() - y["o_samples"]).abs().max()
+            / y["o_samples"].abs().max()).item()
+        return d
+
+    gated = diffs("float32", "float64_jitter_1e-5")
+    uni = draw_uniforms(torch.Generator(device=device).manual_seed(9),
+                        cfg.shape[0], ly, lx, torch.float64, device)
+    swept = [mc_sweep_fermion_shared(tps.to(dt), space, cfg, vp.chi,
+                                     vp.trunc, tuple(x.to(dt) for x in uni))[0]
+             for dt in (torch.float32, torch.float64)]
+    rec = {"lattice": [ly, lx], "D": tps.shape[3], "chi": vp.chi,
+           "chains": cfg.shape[0],
+           "rel_diff_same_jitter": gated, "tolerance": GRADED_F32_TOL,
+           "rel_diff_own_jitter": diffs("float32", "float64"),
+           "jitter_effect_float64": diffs("float64_jitter_1e-5", "float64"),
+           "energy_per_site": {k: float(v["energy"]) / (ly * lx)
+                               for k, v in runs.items()},
+           "sweep_chains_differing": int((swept[0] != swept[1])
+                                         .flatten(1).any(1).sum()),
+           "cg_iterations": {k: v["cg"] for k, v in runs.items()},
+           "seconds": {k: v["s"] for k, v in runs.items()}}
+    log("fermions", step="graded_float32_vs_float64", **rec)
+    bad = {k: v for k, v in gated.items()
+           if k in GRADED_F32_TOL and not v <= GRADED_F32_TOL[k]}
+    if bad:
+        fail(f"graded float32 against float64 at float32's jitter at the "
+             f"flagship's shape: {bad}")
+    return rec
 
 
 def phase_kernels_fermion(device):

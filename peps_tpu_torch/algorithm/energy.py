@@ -63,14 +63,29 @@ class ModelTensors(NamedTuple):
         return cls(*(conv(f) for f in cls._fields))
 
 
+def model_kind(model) -> str | None:
+    """The kind of an evaluator form, decided here for every entry point:
+    "graded" (``GradedFermionModel``), "jw" (``FermionTensors``, the
+    Jordan-Wigner representation) or "bosonic" (``ModelTensors``); None
+    for anything else (a model not yet in its evaluator form)."""
+    from peps_tpu_torch.algorithm.energy_fermion import FermionTensors
+    from peps_tpu_torch.fermion.vmc import GradedFermionModel
+    if isinstance(model, GradedFermionModel):
+        return "graded"
+    if isinstance(model, FermionTensors):
+        return "jw"
+    if isinstance(model, ModelTensors):
+        return "bosonic"
+    return None
+
+
 def model_tensors(model, dtype, device, entry: str):
     """The evaluator's form of a model: ``ModelTensors`` of a bosonic
     square-lattice model, ``FermionTensors`` of a fermionic model in the
-    Jordan-Wigner representation; ModelTensors, FermionTensors and a
-    ``GradedFermionModel`` pass through. Anything else is refused."""
+    Jordan-Wigner representation; an evaluator form (:func:`model_kind`)
+    passes through. Anything else is refused."""
     from peps_tpu_torch.algorithm.energy_fermion import FermionTensors
-    if isinstance(model, (ModelTensors, FermionTensors)) or (
-            hasattr(model, "ft") and hasattr(model, "space")):
+    if model_kind(model) is not None:
         return model
     if hasattr(model, "channels_h"):
         return FermionTensors.from_model(model, dtype, device)

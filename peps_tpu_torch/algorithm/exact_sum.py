@@ -18,9 +18,9 @@ import torch
 
 from peps_tpu_torch.algorithm.energy import (EnergyHoles,
                                              local_energy_and_holes,
-                                             model_tensors)
-from peps_tpu_torch.algorithm.energy_fermion import (
-    FermionTensors, local_energy_and_holes_fermion)
+                                             model_kind, model_tensors)
+from peps_tpu_torch.algorithm.energy_fermion import \
+    local_energy_and_holes_fermion
 from peps_tpu_torch.lattice import BoundaryCondition
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.optimizer.optimizer import Evaluation
@@ -86,10 +86,11 @@ class ExactSumResult(NamedTuple):
 def _evaluate(tps, configs, model, chi, trunc, with_holes, batch_size, bc):
     """EnergyHoles of every configuration, in pieces of batch_size."""
     model = model_tensors(model, tps.dtype, tps.device, "exact sum")
-    if hasattr(model, "space"):
+    kind = model_kind(model)
+    if kind == "graded":
         from peps_tpu_torch.fermion.vmc import local_energy_and_holes_graded
         local = local_energy_and_holes_graded
-    elif isinstance(model, FermionTensors):
+    elif kind == "jw":
         local = local_energy_and_holes_fermion
     else:
         local = local_energy_and_holes

@@ -26,10 +26,9 @@ from typing import Callable
 
 import torch
 
-from peps_tpu_torch.algorithm.energy import (ModelTensors, _local_energy,
+from peps_tpu_torch.algorithm.energy import (_local_energy, model_kind,
                                              o_tensor_of)
-from peps_tpu_torch.algorithm.energy_fermion import (FermionTensors,
-                                                     jw_tables_and_energy)
+from peps_tpu_torch.algorithm.energy_fermion import jw_tables_and_energy
 from peps_tpu_torch.contraction import bmps
 from peps_tpu_torch.kernels.centered_o import centered_o
 from peps_tpu_torch.lattice import transpose_tps
@@ -57,15 +56,16 @@ UniformSource = Callable[[], tuple]
 def _local_fn(tps, model, chi, trunc, with_grad):
     """local(configs, stacks) -> (e_loc, holes [n, Ly, Lx, D, D, D, D] or
     None, psi_loc [n, Ly, Lx] or None, log|psi|) of the model's kind."""
-    if isinstance(model, FermionTensors):
+    kind = model_kind(model)
+    if kind == "jw":
         def local(c, stacks):
             e, tabs = jw_tables_and_energy(tps, c, model, chi, trunc,
                                            with_grad, stacks)
             return e, tabs.holes, tabs.psi_loc, tabs.log_abs_psi
         return local
-    from peps_tpu_torch.fermion.vmc import (GradedFermionModel,
-                                            graded_energy_and_holes)
-    if isinstance(model, GradedFermionModel):
+    if kind == "graded":
+        from peps_tpu_torch.fermion.vmc import graded_energy_and_holes
+
         def local(c, stacks):
             e, holes, log_abs, _ = graded_energy_and_holes(
                 tps, c, model, chi, trunc, with_grad)
@@ -84,9 +84,9 @@ def _sweep_fn(tps, model, chi, trunc, rule):
     """sweep(configs, uniforms, bots) -> (configs', accepted, trials) of
     the model's kind; bots None for the graded sweep, which builds its own
     bottom stacks."""
-    from peps_tpu_torch.fermion.sweep import mc_sweep_fermion_shared
-    from peps_tpu_torch.fermion.vmc import GradedFermionModel
-    if isinstance(model, GradedFermionModel):
+    if model_kind(model) == "graded":
+        from peps_tpu_torch.fermion.sweep import mc_sweep_fermion_shared
+
         def sweep(configs, uniforms, bots):
             configs, st = mc_sweep_fermion_shared(tps, model.space, configs,
                                                   chi, trunc, uniforms)

@@ -21,7 +21,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from peps_tpu_torch.algorithm.energy import model_tensors
+from peps_tpu_torch.algorithm.energy import model_kind, model_tensors
 from peps_tpu_torch.algorithm.mc_evaluator import (MCParams, _sweep_fn,
                                                    mc_energy_grad,
                                                    mc_energy_only)
@@ -81,7 +81,7 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
         raise ValueError(f"model physical dimension {model.phys_dim} != TPS "
                          f"physical dimension {d} (tps shape {tps.shape})")
     mt = model_tensors(model, tps.dtype, dev, "vmc_optimize")
-    graded = hasattr(mt, "space")
+    graded = model_kind(mt) == "graded"
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     rdt = tps.real.dtype if tps.is_complex() else tps.dtype

@@ -503,6 +503,7 @@ def col_transfer_backward(g, env, top, site, bot, needs, transfer):
     (the kernel launch on the card, :func:`col_transfer_plain` in the CPU
     tests), on conj(g) with the result conjugated; the site gradient is the
     hole form (env.top)(bot.g) grouped as ``bmps.punch_holes_row``."""
+    before = col_transfer.launches
     gc = _conj(g)
     views = col_transfer_backward_views(gc, env, top, site, bot)
     out = []
@@ -517,9 +518,7 @@ def col_transfer_backward(g, env, top, site, bot, needs, transfer):
             "...lcuA,...cdAr->...uldr", lt, br)), site.shape)
     grad_bot = _reduce_to(_conj(transfer(*views["bot"])), bot.shape) \
         if needs[3] else None
-    if g.device.type == "cuda":
-        col_transfer.backward_launches += sum(
-            bool(n) for n in (needs[0], needs[1], needs[3]))
+    col_transfer.backward_launches += col_transfer.launches - before
     return out[0], out[1], grad_site, grad_bot
 
 
@@ -573,7 +572,8 @@ def col_transfer_diagnostic(env, top, site, bot):
 
 
 col_transfer.launches = 0
-# launches made by the backward (also counted in ``launches``)
+# the kernel launches made inside col_transfer_backward (also counted in
+# ``launches``); a backward on col_transfer_plain adds none
 col_transfer.backward_launches = 0
 
 

@@ -99,7 +99,7 @@ def test_col_transfer_function_gradcheck(dtype):
     """ColTransferFunction with the plain transfer: gradcheck (fast mode:
     the vector-Jacobian products along random directions), operands
     broadcast over the batch as in the sketch scans (a shared site, a
-    size-1 batch dim)."""
+    size-1 batch dim); its backward counts no kernel launch."""
     gen = torch.Generator().manual_seed(1)
 
     def r(*shape):
@@ -107,9 +107,13 @@ def test_col_transfer_function_gradcheck(dtype):
             .to(dtype).requires_grad_(True)
 
     ops = (r(2, 3, 4, 3, 2), r(3, 4, 2, 5), r(2, 3, 2, 4), r(1, 3, 2, 2, 6))
+    before = k1.col_transfer.backward_launches
     assert torch.autograd.gradcheck(
         lambda *x: k1.ColTransferFunction.apply(*x, k1.col_transfer_plain),
         ops, fast_mode=True)
+    # the backward counts kernel launches only, and the plain transfer
+    # launches none
+    assert k1.col_transfer.backward_launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
