@@ -154,6 +154,35 @@ Each phase ends with a phase_end line holding its wall seconds.
      complex128 and float64, one SR evaluation on the card and on the CPU
      with the same uniforms: energy, O buffer and SR direction within
      1e-10 relative, the same configurations.
+ 11. fermion_measure: (a) measure() of phase 10 (b)'s optimized graded
+     6x6 t-J state and final configurations at the flagship's width (D=8,
+     chi=32, sketch, 32 chains, float32, 2 warm-up sweeps, 4 samples in
+     chunks of 2, eval_chunk 8, env_chunk 8, measure_pair_corr): one line
+     with sampling_wall_s, samples per second, E/site, the sums of the
+     density maps, the launches inside the call and the peak memory, one
+     line with the split of a sample step timed inside the real call (the
+     sweep, the energy pass without the env build, the GradedEnvShared
+     build, the row walker, the column walker; synchronized wrappers
+     where measure() looks the functions up); checks: finite statistics,
+     E/site in (-1.35, -0.736), N_up = N_dn = 17 and 2 holes after every
+     sweep (and the density maps summing to them), both pair tables zero
+     wherever |i-k| <= 1, K1, K3, K4 and K5 launched; (b) the conditioned
+     estimator at 6x6: P(A) counted over 4 unconditioned sweeps of the 32
+     chains, then 8 chains moved into A (holes Chebyshev-adjacent) and
+     swept under the hard hole-attraction dress (kappa 50), 2 warm-up
+     sweeps and 2 samples with both pair tables; A must hold in every
+     chain, the tables finite; (c) the card against the CPU in float64
+     and complex128 within 1e-10: both graded walkers on one
+     GradedEnvShared of 8 configurations of a seeded 4x4, D=4 state at
+     chi=6, and exact_sum_pair_corr_graded on a seeded 2x4 ladder; (d) a
+     Jordan-Wigner t-J measure() with the pair correlators (2x4, D=4) and
+     one of phase 10 (a)'s Hubbard state: finite, N_up and N_dn kept.
+Phase 2 also holds K5 (bmps_overlap, kernels_fermion lines) at the column
+walker's per-k shape (8 configurations x 5 start bonds x 6 columns x 4
+closures, Lx=6, chi=32, D=8, b broadcast over the start bonds) in all four
+dtypes against its plain version (float32 and complex64 to 1e-5, float64
+and complex128 to 1e-12), with both times, the bound (FP32 or DMMA peak,
+or bytes) and the share of it reached.
 Phase 2 also holds the fermion slice's kernels (kernels_fermion lines): K4
 (fermion_dress) in its three outputs at 6x6, D=8, d=3, 32 chains (the
 projection, the prefix-flipped projection, one row's candidates) in all
@@ -249,6 +278,11 @@ HUBBARD = {"ly": 2, "lx": 4, "D": 4, "chi": 16, "nchains": 64,
 K4_CASES = (("project", {"select_config": True, "f0": 0, "nf": 1}),
             ("project_flipped", {"select_config": True, "f0": 1, "nf": 1}),
             ("candidates_row", {"y0": 2, "ny": 1}))
+# phase 11 (fermion_measure): measure() of phase 10 (b)'s state, the
+# conditioned estimator's count and conditioned chains
+FMEAS = {"warmup": 2, "samples": 4, "chunk": 2, "env_chunk": 8,
+         "count_sweeps": 4, "cond_chains": 8, "cond_warmup": 2,
+         "cond_samples": 2}
 HBM_BPS = 3.35e12          # H100 SXM device memory rate (data sheet)
 EINSUM_1CALL = "...alc,...auA,...uldr,...cdC->...ArC"
 EINSUM_K3 = "...amnc,...auA,...umdr,...dnef,...ceC->...ArfC"
@@ -2245,8 +2279,9 @@ def k1_backward_phase(device, peak, gen):
 
 
 def fermion_counts():
-    """K1 (forward and backward), K2, K3 and K4's launch counters as they
-    stand (not reset)."""
+    """K1 (forward and backward), K2, K3, K4 and K5's launch counters as
+    they stand (not reset)."""
+    from peps_tpu_torch.kernels.bmps_overlap import bmps_overlap
     from peps_tpu_torch.kernels.centered_o import centered_o
     from peps_tpu_torch.kernels.col_transfer import col_transfer
     from peps_tpu_torch.kernels.fermion_dress import fermion_dress
@@ -2256,17 +2291,20 @@ def fermion_counts():
             "col_transfer_backward": col_transfer.backward_launches,
             "centered_o": centered_o.launches,
             "pair_transfer": pair_transfer.launches,
-            "fermion_dress": fermion_dress.launches}
+            "fermion_dress": fermion_dress.launches,
+            "bmps_overlap": bmps_overlap.launches}
 
 
 def fermion_counters():
-    """K1 (forward and backward), K2, K3 and K4's launch counters, set to
-    0; returns a reader of {name: launches since}."""
+    """K1 (forward and backward), K2, K3, K4 and K5's launch counters, set
+    to 0; returns a reader of {name: launches since}."""
+    from peps_tpu_torch.kernels.bmps_overlap import bmps_overlap
     from peps_tpu_torch.kernels.centered_o import centered_o
     from peps_tpu_torch.kernels.col_transfer import col_transfer
     from peps_tpu_torch.kernels.fermion_dress import fermion_dress
     from peps_tpu_torch.kernels.pair_transfer import pair_transfer
-    for k in (col_transfer, centered_o, pair_transfer, fermion_dress):
+    for k in (col_transfer, centered_o, pair_transfer, fermion_dress,
+              bmps_overlap):
         k.launches = 0
     col_transfer.backward_launches = 0
     return fermion_counts
@@ -2353,7 +2391,7 @@ def phase_fermions(device):
     read = fermion_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = vmc_optimize(tps, hub, params, gen)
+    res = hub_res = vmc_optimize(tps, hub, params, gen)
     torch.cuda.synchronize()
     cfg = res.final_configs.cpu().numpy()
     n_up = np.asarray(hub.n_up)[cfg].sum((1, 2))
@@ -2464,11 +2502,13 @@ def phase_fermions(device):
         fail("graded VMC: a chain changed its N_up or N_dn")
     if not all(r.accept_rate > 0 for r in recs):
         fail(f"graded VMC: acceptance {[r.accept_rate for r in recs]}")
-    missing = [k for k, v in l_vmc.items() if v == 0]
+    # K5 lies on the measurement path only (phase 11)
+    missing = [k for k, v in l_vmc.items() if v == 0 and k != "bmps_overlap"]
     if missing:
         fail(f"graded VMC: kernels not launched: {missing}")
     graded_breakdown(res, gm, vp, device)
     graded_precision(res, model, space8, vp, device)
+    flag_res = res
 
     # (c) the card against the CPU
     ly, lx, dd, nc = (SMALL[k] for k in ("ly", "lx", "D", "nchains"))
@@ -2523,7 +2563,9 @@ def phase_fermions(device):
         if not (all(v <= 1e-10 for v in diffs.values()) and same):
             fail(f"graded {dt} card against CPU: {diffs}, configurations "
                  f"equal {same}")
-    return {"jw_hubbard": l_jw, "graded_su": l_su, "graded_vmc": l_vmc}
+    return {"jw_hubbard": l_jw, "graded_su": l_su, "graded_vmc": l_vmc,
+            "hubbard": (hub_res, hub, params),
+            "flagship": (flag_res, gm, vp, e_neel, n_up0, n_dn0)}
 
 
 def graded_breakdown(res, gm, vp, device):
@@ -2696,12 +2738,434 @@ def graded_precision(res, model, space, vp, device):
 
 
 def phase_kernels_fermion(device):
-    """Phase 2, the fermion slice's kernels: K4 and K1's backward."""
+    """Phase 2, the fermion slices' kernels: K4, K1's backward and K5."""
     import torch
     peak = peak_rates(device)
     gen = torch.Generator(device=device).manual_seed(4321)
     return {"fermion_dress": k4_phase(device, gen),
-            "col_transfer_backward": k1_backward_phase(device, peak, gen)}
+            "col_transfer_backward": k1_backward_phase(device, peak, gen),
+            "bmps_overlap": k5_phase(device, peak, gen)}
+
+
+def k5_phase(device, peak, gen):
+    """Phase 2, K5 (bmps_overlap): the column walker's closures at the
+    flagship's per-k shape (8 configurations x 5 start bonds x 6 columns
+    x 4 closures, Lx = 6, chi = 32, D = 8; b broadcast over the start
+    bonds) in all four dtypes against the plain version (the reference's
+    scan of one einsum, a norm and a divide per column), timed in turns
+    with it. The bound is the larger of 2 Lx chi^3 D multiply-adds an item
+    (4 real FMAs a complex one) over the FP32 or DMMA peak and the
+    distinct bytes read (a broadcast operand once) and written over
+    3.35 TB/s; no single PyTorch call computes the scan (library_ms null).
+    Returns the record of float32."""
+    import torch
+    from peps_tpu_torch.kernels import bmps_overlap as k5
+    nc, nb, lx, chi, D = 8, 5, FLAG["L"], FLAG["chi"], FLAG["D"]
+    rec = None
+    for dt in ("float32", "float64", "complex64", "complex128"):
+        dtype = getattr(torch, dt)
+        real = torch.float32 if dt in ("float32", "complex64") \
+            else torch.float64
+        a = torch.randn(nc, nb, lx, 4, lx, chi, D, chi, generator=gen,
+                        device=device, dtype=real)
+        b = torch.randn(nc, 1, lx, 4, lx, chi, D, chi, generator=gen,
+                        device=device, dtype=real)
+        if dtype.is_complex:
+            a = torch.complex(a, torch.randn_like(a))
+            b = torch.complex(b, torch.randn_like(b))
+        mant, logw = k5.bmps_overlap(a, b)
+        rm, rl = k5.bmps_overlap_plain(a, b)
+        torch.cuda.synchronize()
+        shift = rl.max()
+        psi, ref = mant * torch.exp(logw - shift), rm * torch.exp(rl - shift)
+        abs_err, rel = max_err(psi, ref)
+        log_err = (logw - rl).abs().max().item()
+        t = _in_turns({"kern": lambda: k5.bmps_overlap(a, b),
+                       "plain": lambda: k5.bmps_overlap_plain(a, b)}, 5)
+        items = mant.numel()
+        flops = 2 * 2 * lx * chi ** 3 * D * items * (4 if dtype.is_complex
+                                                     else 1)
+        rate = peak["fp32_flops" if real == torch.float32 else "fp64_flops"]
+        nbytes = (a.numel() + b.numel() + mant.numel()) * a.element_size() \
+            + logw.numel() * logw.element_size()
+        bound_ms = max(flops / rate, nbytes / HBM_BPS) * 1e3
+        bound_by = "operations" if flops / rate >= nbytes / HBM_BPS \
+            else "bytes"
+        r = {"kernel": "bmps_overlap", "case": "colshared_step",
+             "dtype": dt, "batch": list(mant.shape), "items": items,
+             "rel_err": rel, "max_abs_err": abs_err, "log_weight_err": log_err,
+             "ms": t["kern"], "plain_ms": t["plain"], "flops": flops,
+             "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+             "pct_of_bound": 100 * bound_ms / t["kern"], "library_ms": None}
+        log("kernels_fermion", **r)
+        if not (rel <= TOL[dt] and log_err <= 10 * TOL[dt] * lx):
+            fail(f"bmps_overlap {dt}: rel err {rel}, log-weight err "
+                 f"{log_err} > {TOL[dt]}")
+        if dt == "float32":
+            rec = r
+        del a, b, mant, logw, rm, rl
+    return rec
+
+
+def timed_parts(targets):
+    """Wrap each (module, attribute, name) of targets where its callers
+    look it up: every call synchronizes the card and adds its host seconds
+    and its launches (fermion_counts) to the name's entry. Returns
+    (seconds {name: [per call]}, launches {name: {kernel: n}}, restore)."""
+    import torch
+    secs, counts = {}, {}
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            c0 = fermion_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            secs.setdefault(name, []).append(time.perf_counter() - t0)
+            c1 = fermion_counts()
+            counts[name] = {k: counts.get(name, {}).get(k, 0) + c1[k] - c0[k]
+                            for k in c1}
+            return out
+        return timed
+
+    for mod, attr, name in targets:
+        setattr(mod, attr, wrap(name, getattr(mod, attr)))
+
+    def restore():
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return secs, counts, restore
+
+
+def make_adjacent(cfg):
+    """Move the second hole of one configuration next to the first (swap
+    contents), as examples/flagship_pc_cond.py starts its conditioned
+    chains."""
+    import numpy as np
+    cfg = np.array(cfg)
+    holes = np.argwhere(cfg == 0)
+    if len(holes) != 2:
+        return cfg
+    (y0, x0), (y1, x1) = holes
+    if max(abs(y0 - y1), abs(x0 - x1)) <= 1:
+        return cfg
+    ty, tx = (y0, x0 + 1) if x0 + 1 < cfg.shape[1] else (y0, x0 - 1)
+    cfg[y1, x1], cfg[ty, tx] = cfg[ty, tx], cfg[y1, x1]
+    return cfg
+
+
+def fermion_measure_flagship(f, device):
+    """Phase 11 (a): measure() of phase 10 (b)'s optimized graded 6x6
+    state and final configurations with the pair walkers, the split of its
+    sample steps timed inside the call. Returns the launches inside it."""
+    import numpy as np
+    import torch
+    from peps_tpu_torch.algorithm import measure as meas
+    from peps_tpu_torch.algorithm import measure_fermion as mf
+    from peps_tpu_torch.algorithm.measure import MeasurementParams, measure
+    from peps_tpu_torch.fermion import sweep as fsweep
+    from peps_tpu_torch.montecarlo.sweep import UpdateRule
+
+    res, gm, vp, e_neel, n_up0, n_dn0 = f["flagship"]
+    L = FLAG["L"]
+    n = L * L
+    p = FMEAS
+    params = MeasurementParams(
+        num_samples=p["samples"], num_warmup_sweeps=p["warmup"],
+        nchains=FLAG["nchains"], chunk_size=p["chunk"],
+        eval_chunk=FLAG["chunk"], env_chunk=p["env_chunk"],
+        measure_pair_corr=True)
+    seen = []
+    sweep_fn = fsweep.mc_sweep_fermion_shared
+
+    def sweep_and_record(*args, **kwargs):
+        out = sweep_fn(*args, **kwargs)
+        c = out[0]
+        seen.append(torch.stack([(c == s).sum((1, 2)) for s in range(3)])
+                    .cpu())
+        return out
+
+    fsweep.mc_sweep_fermion_shared = sweep_and_record
+    secs, counts, restore = timed_parts((
+        (fsweep, "mc_sweep_fermion_shared", "sweep"),
+        (meas, "_energy_pass", "energy_pass"),
+        (mf, "graded_env_shared", "env_build"),
+        (mf, "tj_singlet_pair_corr_graded_rowshared", "row_walker"),
+        (mf, "tj_singlet_pair_corr_graded_colshared", "col_walker")))
+    try:
+        read = fermion_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        out = measure(res.state, gm, params, vp.chi, vp.trunc, UpdateRule(),
+                      res.final_configs,
+                      generator=torch.Generator(device=device).manual_seed(17))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read()
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    finally:
+        restore()
+        fsweep.mc_sweep_fermion_shared = sweep_fn
+    s = p["samples"]
+    per_step = {
+        "sweep": sum(secs["sweep"][p["warmup"]:]) / s,
+        "energy_pass": (sum(secs["energy_pass"]) - sum(secs["env_build"]))
+        / s,
+        "env_build": sum(secs["env_build"]) / s,
+        "row_walker": sum(secs["row_walker"]) / s,
+        "col_walker": sum(secs["col_walker"]) / s}
+    step_s = out.sampling_wall_s / s
+    per_step["rest"] = step_s - sum(per_step.values())
+    samples = FLAG["nchains"] * s
+    st = out.stats
+    e = float(st["energy"][0]) / n
+    counts_ok = all(bool(torch.all(c == torch.tensor([[n - n_up0 - n_dn0],
+                                                      [n_up0], [n_dn0]])))
+                    for c in seen)
+    sums = {k: float(np.sum(st[k][0])) for k in ("n_up", "n_dn",
+                                                 "hole_density")}
+    nb = L - 1
+    near = np.abs(np.subtract.outer(np.arange(nb), np.arange(nb))) <= 1
+    tables = {k: st[k][0] for k in ("pair_corr_row", "pair_corr_col")}
+    log("fermion_measure", step="flagship", lattice=[L, L], D=FLAG["D"],
+        chi=FLAG["chi"], chains=FLAG["nchains"], samples=s,
+        warmup_sweeps=p["warmup"], chunk_size=p["chunk"],
+        eval_chunk=FLAG["chunk"], env_chunk=p["env_chunk"],
+        sampling_wall_s=out.sampling_wall_s,
+        samples_per_s=samples / out.sampling_wall_s,
+        energy_per_site=e,
+        energy_stderr_per_site=float(st["energy"][1]) / n,
+        accept_rate=out.accept_rate, sums=sums,
+        every_sweep_keeps_numbers=counts_ok,
+        pair_corr_row_max_abs=float(np.abs(tables["pair_corr_row"]).max()),
+        pair_corr_col_max_abs=float(np.abs(tables["pair_corr_col"]).max()),
+        launches=launches, peak_mem_GB=peak_gb, phase_wall_s=wall)
+    log("fermion_measure", step="flagship_step_split",
+        step_s=step_s, seconds=per_step,
+        share={k: v / step_s for k, v in per_step.items()},
+        calls={k: len(v) for k, v in secs.items()}, launches=counts)
+    finite = all(np.all(np.isfinite(v)) for pair in st.values() for v in pair)
+    if not finite:
+        fail("fermion measure: non-finite statistics")
+    if not -1.35 < e < e_neel:
+        fail(f"fermion measure: E/site {e} outside (-1.35, {e_neel})")
+    if not (counts_ok and sums == {"n_up": float(n_up0),
+                                   "n_dn": float(n_dn0),
+                                   "hole_density": float(n - n_up0 - n_dn0)}):
+        fail(f"fermion measure: numbers not kept: {sums}, every sweep "
+             f"{counts_ok}")
+    for k, tab in tables.items():
+        if not (tab.shape == (L, nb, nb) and np.all(tab[:, near] == 0)):
+            fail(f"fermion measure: {k} {tab.shape} nonzero at |i-k| <= 1")
+    missing = [k for k in ("col_transfer_forward", "pair_transfer",
+                           "fermion_dress", "bmps_overlap")
+               if launches[k] == 0]
+    if missing:
+        fail(f"fermion measure: kernels not launched: {missing}")
+    return launches
+
+
+def fermion_measure_conditioned(f, device):
+    """Phase 11 (b): the support-conditioned estimator at 6x6: the count
+    of A (holes Chebyshev-adjacent) over unconditioned sweeps of the 32
+    chains, then 8 chains moved into A and swept under the hard hole-
+    attraction dress with both pair tables per sample; A must hold in
+    every chain after every sweep. Returns the launches of the
+    conditioned run."""
+    import numpy as np
+    import torch
+    from peps_tpu_torch.algorithm import measure_fermion as mf
+
+    res, gm, vp, *_ = f["flagship"]
+    p = FMEAS
+    gen = torch.Generator(device=device).manual_seed(31)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, inds = mf.count_adjacent(res.state, gm.space, res.final_configs,
+                                vp.chi, vp.trunc, p["count_sweeps"], gen)
+    torch.cuda.synchronize()
+    t_count = time.perf_counter() - t0
+    starts = np.stack([make_adjacent(c) for c in
+                       res.final_configs[:p["cond_chains"]].cpu().numpy()])
+    read = fermion_counters()
+    t0 = time.perf_counter()
+    cfgs, tabs, ind = mf.conditioned_pair_tables(
+        res.state, gm.space, torch.as_tensor(starts, device=device), vp.chi,
+        vp.trunc, p["cond_warmup"], p["cond_samples"], gen,
+        env_chunk=p["env_chunk"])
+    torch.cuda.synchronize()
+    t_cond = time.perf_counter() - t0
+    launches = read()
+    finite = all(bool(torch.isfinite(v).all()) for v in tabs.values())
+    held = bool((ind > 0.5).all())
+    pa = float(inds.mean())
+    log("fermion_measure", step="conditioned", count_chains=inds.shape[1],
+        count_sweeps=inds.shape[0], p_adjacent=pa, count_s=t_count,
+        chains=len(starts), warmup_sweeps=p["cond_warmup"],
+        samples=p["cond_samples"], adjacency_held=held, finite=finite,
+        estimate_row_max_abs=pa * float(tabs["row"].mean((0, 1)).abs().max()),
+        estimate_col_max_abs=pa * float(tabs["col"].mean((0, 1)).abs().max()),
+        seconds=t_cond, launches=launches)
+    if not (held and finite):
+        fail(f"conditioned chains: adjacency held {held}, finite {finite}")
+    return launches
+
+
+def fermion_measure_card_vs_cpu(device):
+    """Phase 11 (c): the graded walkers and the exact sector sum on the
+    card against the CPU in float64 and complex128 within 1e-10: both
+    walkers on one GradedEnvShared of 8 configurations of a seeded 4x4,
+    D = 4 graded t-J state (4 holes, configurations with support drawn
+    from a seeded pool) at chi = 6 (FERMION_CARD_CPU_CHI), and
+    exact_sum_pair_corr_graded on a seeded 2x4 ladder (3 up, 3 down, 2
+    holes)."""
+    import numpy as np
+    import torch
+    from peps_tpu_torch.algorithm import measure_fermion as mf
+    from peps_tpu_torch.algorithm.exact_measure import (
+        _pair_corr_support, exact_sum_pair_corr_graded)
+    from peps_tpu_torch.algorithm.exact_sum import sector_configs
+    from peps_tpu_torch.fermion.graded import GT, parity_mask
+    from peps_tpu_torch.fermion.peps import FermionSpace
+    from peps_tpu_torch.lattice import boundary_mask
+    from peps_tpu_torch.linalg import TruncParams
+
+    chi, dd = FERMION_CARD_CPU_CHI, SMALL["D"]
+    sp = FermionSpace((0, 1, 1), dd // 2, dd // 2)
+    pm = parity_mask(GT(torch.zeros((3,) + (dd,) * 4),
+                        (sp.phys_parity,) + (sp.bond_parity,) * 4,
+                        (False, True, True, False, False)))
+    rng = np.random.default_rng(111)
+    trunc = TruncParams(chi, 1, 1e-12, scheme="sketch")
+
+    def state(ly, lx, dt):
+        shape = (ly, lx, 3) + (dd,) * 4
+        a = rng.standard_normal(shape)
+        if dt == "complex128":
+            a = a + 1j * rng.standard_normal(shape)
+        return a * pm * boundary_mask(ly, lx, 3, dd)
+
+    ly, lx, nc = SMALL["ly"], SMALL["lx"], SMALL["nchains"]
+    base = np.array([0] * 4 + [1] * 6 + [2] * 6)
+    pool = np.stack([rng.permutation(base).reshape(ly, lx)
+                     for _ in range(400)])
+    ok = _pair_corr_support(pool) & _pair_corr_support(pool.swapaxes(1, 2))
+    cfg = pool[np.nonzero(ok)[0][:nc]]
+    ladder = sector_configs(2, 4, {0: 2, 1: 3, 2: 3})
+    launches = {}
+    for dt in ("float64", "complex128"):
+        a, lad = state(ly, lx, dt), state(2, 4, dt)
+        runs = {}
+        for where in ("cpu", device):
+            read = fermion_counters()
+            t0 = time.perf_counter()
+            tt = torch.as_tensor(a, device=where)
+            c = torch.as_tensor(cfg, device=where)
+            shared = mf.graded_env_shared(tt, c, sp, chi, trunc)
+            row = mf.tj_singlet_pair_corr_graded_rowshared(tt, c, sp, chi,
+                                                           trunc, shared)
+            col = mf.tj_singlet_pair_corr_graded_colshared(tt, c, sp, chi,
+                                                           trunc, shared)
+            ex, z = exact_sum_pair_corr_graded(
+                torch.as_tensor(lad, device=where), ladder, sp, chi, trunc)
+            runs[str(where) if where == "cpu" else "card"] = (
+                row.cpu(), col.cpu(), ex, z, time.perf_counter() - t0)
+            if where != "cpu":
+                launches[dt] = read()
+        (rc, cc, exc, zc, sc), (rg, cg, exg, zg, sg) = runs["cpu"], \
+            runs["card"]
+        diffs = {"pair_corr_row": _rel_diff(rg, rc),
+                 "pair_corr_col": _rel_diff(cg, cc),
+                 "exact_row": _rel_diff(torch.as_tensor(exg["row"]),
+                                        torch.as_tensor(exc["row"])),
+                 "exact_col": _rel_diff(torch.as_tensor(exg["col"]),
+                                        torch.as_tensor(exc["col"])),
+                 "weight_sum": abs(zg / zc - 1)}
+        log("fermion_measure", step="card_vs_cpu", dtype=dt,
+            lattice=[ly, lx], D=dd, chi=chi, configurations=len(cfg),
+            ladder_sector=len(ladder), rel_diff=diffs,
+            max_abs={"row": float(rc.abs().max()),
+                     "col": float(cc.abs().max()),
+                     "exact_row": float(np.abs(exc["row"]).max()),
+                     "exact_col": float(np.abs(exc["col"]).max())},
+            cpu_s=sc, card_s=sg, launches=launches[dt])
+        if not all(v <= 1e-10 for v in diffs.values()):
+            fail(f"fermion measurement {dt} card against CPU: {diffs}")
+    return launches
+
+
+def fermion_measure_jw(f, device):
+    """Phase 11 (d): Jordan-Wigner measure(): a t-J state (seeded 2x4,
+    D = 4, chi = 16, 16 chains, exchange) with the pair correlators of
+    both frames, and phase 10 (a)'s Hubbard state and final
+    configurations (Suwa-Todo with the conservation mask); 4 samples
+    each. Checks: finite statistics, N_up and N_dn kept (the sums of the
+    density maps). Returns the launches of both."""
+    import numpy as np
+    import torch
+    from peps_tpu_torch.algorithm.measure import MeasurementParams, measure
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import fermion
+    from peps_tpu_torch.montecarlo.sweep import UpdateRule
+    from peps_tpu_torch.tps import random_tps
+
+    hub_res, hub, hub_params = f["hubbard"]
+    gen = torch.Generator(device=device).manual_seed(41)
+    ly, lx = 2, 4
+    tj = fermion.tj_model(3.0, 1.0)
+    tps = random_tps(gen, ly, lx, 3, 4, torch.float32, scale=0.5,
+                     device=device)
+    base = torch.tensor([0, 0, 1, 1, 1, 2, 2, 2], device=device)
+    cfg = torch.stack([base[torch.randperm(ly * lx, generator=gen,
+                                           device=device)]
+                       for _ in range(16)]).reshape(16, ly, lx)
+    runs = (("jw_tj", tps, tj, cfg, UpdateRule("exchange"),
+             TruncParams(16, 1, 1e-8, scheme="sketch"), (3, 3)),
+            ("jw_hubbard", hub_res.state, hub, hub_res.final_configs,
+             hub_params.rule, hub_params.trunc,
+             (HUBBARD["ly"] * HUBBARD["lx"] // 4,) * 2))
+    launches = {}
+    for name, state, model, configs, rule, trunc, (nu, nd) in runs:
+        read = fermion_counters()
+        t0 = time.perf_counter()
+        out = measure(state, model, MeasurementParams(
+            num_samples=4, num_warmup_sweeps=2, nchains=configs.shape[0],
+            chunk_size=2, measure_pair_corr=True), trunc.d_max, trunc, rule,
+            configs, generator=torch.Generator(device=device).manual_seed(5))
+        torch.cuda.synchronize()
+        launches[name] = read()
+        st = out.stats
+        sums = {k: float(np.sum(st[k][0])) for k in ("n_up", "n_dn")}
+        finite = all(np.all(np.isfinite(v)) for p in st.values() for v in p)
+        log("fermion_measure", step=name, lattice=list(state.shape[:2]),
+            chains=configs.shape[0], keys=sorted(st),
+            energy_per_site=float(st["energy"][0]) / (state.shape[0]
+                                                      * state.shape[1]),
+            sums=sums, finite=finite, accept_rate=out.accept_rate,
+            sampling_wall_s=out.sampling_wall_s,
+            seconds=time.perf_counter() - t0, launches=launches[name])
+        if not (finite and abs(sums["n_up"] - nu) < 1e-4
+                and abs(sums["n_dn"] - nd) < 1e-4):
+            fail(f"{name} measure: finite {finite}, sums {sums}, expected "
+                 f"{nu}, {nd}")
+        if name == "jw_tj" and not {"pair_corr_row",
+                                    "pair_corr_col"} <= set(st):
+            fail(f"jw_tj measure: no pair correlators in {sorted(st)}")
+    return launches
+
+
+def phase_fermion_measure(f, device):
+    """Phase 11: fermion measurement. (a) measure() of phase 10 (b)'s
+    state, (b) the conditioned estimator, (c) the card against the CPU,
+    (d) Jordan-Wigner measure(). Returns the launches of (a)."""
+    launches = fermion_measure_flagship(f, device)
+    fermion_measure_conditioned(f, device)
+    fermion_measure_card_vs_cpu(device)
+    fermion_measure_jw(f, device)
+    return launches
 
 
 def main():
@@ -2749,8 +3213,11 @@ def main():
     launches_close, launches_cx = timed("bosonic_close",
                                         phase_bosonic_close, res, device)
     launches_f = timed("fermions", phase_fermions, device)
+    launches_fm = timed("fermion_measure", phase_fermion_measure,
+                        launches_f, device)
     graded = launches_f["graded_vmc"]
     k4 = kern["fermion"]["fermion_dress"]
+    k5 = kern["fermion"]["bmps_overlap"]
     bwd = kern["fermion"]["col_transfer_backward"]
 
     record = {"kernels": [
@@ -2767,6 +3234,8 @@ def main():
          "launches_fermions": graded["col_transfer_forward"]
          + graded["col_transfer_backward"],
          "launches_backward_fermions": graded["col_transfer_backward"],
+         "launches_fermion_measure": launches_fm["col_transfer_forward"]
+         + launches_fm["col_transfer_backward"],
          "backward": {k: bwd[k] for k in ("case", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "max_abs_err", "rel_err")},
@@ -2781,6 +3250,7 @@ def main():
          "launches_bosonic_close": launches_close["centered_o"],
          "launches_complex": launches_cx["centered_o"],
          "launches_fermions": graded["centered_o"],
+         "launches_fermion_measure": launches_fm["centered_o"],
          **kern["centered_o"]},
         {"name": "pair_transfer", "route": "cuda",
          "source": "peps_tpu_torch/csrc/pair_transfer.cu",
@@ -2790,6 +3260,7 @@ def main():
          "launches_bosonic_close": launches_close["pair_transfer"],
          "launches_complex": launches_cx["pair_transfer"],
          "launches_fermions": graded["pair_transfer"],
+         "launches_fermion_measure": launches_fm["pair_transfer"],
          **kern["pair_transfer"]},
         {"name": "fermion_dress", "route": "cuda",
          "source": "peps_tpu_torch/csrc/fermion_dress.cu",
@@ -2797,9 +3268,17 @@ def main():
          "launches": graded["fermion_dress"],
          "launches_jw": launches_f["jw_hubbard"]["fermion_dress"],
          "launches_graded_su": launches_f["graded_su"]["fermion_dress"],
+         "launches_fermion_measure": launches_fm["fermion_dress"],
          **{k: k4[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
                                "copy_ms", "bound_ms", "bound_by",
                                "library_ms")}},
+        {"name": "bmps_overlap", "route": "cuda",
+         "source": "peps_tpu_torch/csrc/bmps_overlap.cu",
+         "replaces": "peps_tpu/algorithm/measure_fermion.py:386",
+         "launches": launches_fm["bmps_overlap"],
+         "launches_fermion_measure": launches_fm["bmps_overlap"],
+         **{k: k5[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms")}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

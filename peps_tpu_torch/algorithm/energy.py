@@ -93,23 +93,22 @@ def model_tensors(model, dtype, device, entry: str):
         raise NotImplementedError(
             f"{entry} of a {type(model).__name__}: the port takes bosonic "
             "square-lattice models, fermionic models (FermionModel, "
-            "FermionTensors; ROADMAP queue 1, item 10) and GradedFermionModel")
+            "FermionTensors) and GradedFermionModel")
     return ModelTensors.from_model(model, dtype, device)
 
 
 def bosonic_model_tensors(model, dtype, device, entry: str) -> ModelTensors:
     """ModelTensors of a bosonic square-lattice model (passed through when
-    it already is one), for the entries that take bosonic models only; a
-    fermionic model is refused: measuring it comes with the fermion
-    measurement slice (ROADMAP queue 1, item 10: ``measure_fermion``, the
-    fermion registry)."""
+    it already is one), for the entries that take bosonic models only, as
+    the reference's do (the Jastrow-dressed energy, the exact-sum
+    measurement of the spin observables); anything else is refused."""
     if isinstance(model, ModelTensors):
         return model
     if not hasattr(model, "h_h"):
         raise NotImplementedError(
-            f"{entry} of a {type(model).__name__}: fermionic models come "
-            "with the fermion measurement slice (ROADMAP queue 1, item 10: "
-            "measure_fermion and the fermion registry)")
+            f"{entry} of a {type(model).__name__}: it takes bosonic "
+            "square-lattice models, as the reference's does (fermionic "
+            "states: measure() and exact_sum_pair_corr_graded)")
     return ModelTensors.from_model(model, dtype, device)
 
 

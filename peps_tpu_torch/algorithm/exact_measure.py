@@ -1,7 +1,7 @@
 """Exact-summation measurement, the oracle of the measurement code (port of
-the bosonic part of ``peps_tpu/algorithm/exact_measure.py``): enumerate the
-configurations and average the observables with exact |psi|^2 weights.
-The graded pair-correlation sum comes with ROADMAP queue 1, item 10.
+``peps_tpu/algorithm/exact_measure.py``): enumerate the configurations and
+average the observables with exact |psi|^2 weights; for graded t-J states
+the sector-summed pair correlator (:func:`exact_sum_pair_corr_graded`).
 """
 from __future__ import annotations
 
@@ -69,3 +69,66 @@ def exact_sum_measure(tps: torch.Tensor, configs, model, chi: int,
         wn = (w / z).reshape((-1,) + (1,) * (arr.ndim - 1))
         values[key] = (wn * arr).sum(0).cpu().numpy()
     return ExactMeasureResult(values, z)
+
+
+def _pair_corr_support(view: np.ndarray) -> np.ndarray:
+    """Boolean [N]: whether any line of the configurations view [N, nlines,
+    L] holds both a hole bond (two adjacent empty sites) and a singlet-
+    ordered pair bond (adjacent up-down in either order) at in-line bond
+    distance > 1, the support of the pair-correlation tables."""
+    a, b = view[..., :-1], view[..., 1:]
+    hole = (a == 0) & (b == 0)
+    pair = ((a == 1) & (b == 2)) | ((a == 2) & (b == 1))
+    nb = hole.shape[-1]
+    gap = np.abs(np.arange(nb)[:, None] - np.arange(nb)[None, :]) > 1
+    m = ((hole[..., :, None] & pair[..., None, :])
+         | (pair[..., :, None] & hole[..., None, :])) & gap
+    return m.any(axis=(-1, -2, -3))
+
+
+def exact_sum_pair_corr_graded(tps, configs, space, chi: int,
+                               trunc: TruncParams, frames=("row", "col"),
+                               batch_size: int = 16, amp_batch: int = 256):
+    """Exact sector-summed <Delta^dag_i Delta_k> of a graded t-J state:
+    C[l, i, k] = sum_S |psi(S)|^2 table(S)[l, i, k] / sum_S |psi(S)|^2 over
+    the enumerated configurations [N, Ly, Lx] (a charge sector), table the
+    env-shared walker of the frame. One batched amplitude pass over the
+    sector (amp_batch configurations a call), then the walkers on the
+    supported configurations only (batch_size a call, one GradedEnvShared
+    each). The operator conserves (N_up, N_dn), so the sector sum is exact
+    for the sector-projected state. Returns ({frame: float64 table},
+    weight_sum)."""
+    from peps_tpu_torch.algorithm.measure_fermion import (
+        graded_env_shared, tj_singlet_pair_corr_graded_colshared,
+        tj_singlet_pair_corr_graded_rowshared)
+    from peps_tpu_torch.fermion.vmc import log_abs_psi_fermion
+
+    cf = np.asarray(configs)
+    cfg = torch.as_tensor(cf, device=tps.device).long()
+    parts = [log_abs_psi_fermion(tps, cfg[s:s + amp_batch], space, chi,
+                                 trunc)
+             for s in range(0, cfg.shape[0], amp_batch)]
+    logs = torch.cat([p[0] for p in parts]).double().cpu().numpy()
+    dead = (torch.cat([p[1] for p in parts]) == 0).cpu().numpy()
+    w = np.where(dead, 0.0, np.exp(2.0 * (logs - logs[~dead].max())))
+    z = float(w.sum())
+    walkers = {"row": tj_singlet_pair_corr_graded_rowshared,
+               "col": tj_singlet_pair_corr_graded_colshared}
+    ly, lx = cf.shape[1], cf.shape[2]
+    shapes = {"row": (ly, lx - 1, lx - 1), "col": (lx, ly - 1, ly - 1)}
+    out = {}
+    for frame in frames:
+        view = cf if frame == "row" else np.swapaxes(cf, 1, 2)
+        idx = np.nonzero(_pair_corr_support(view))[0]
+        if idx.size == 0:
+            out[frame] = np.zeros(shapes[frame])
+            continue
+        tables = []
+        for s in range(0, idx.size, batch_size):
+            c = cfg[torch.as_tensor(idx[s:s + batch_size], device=tps.device)]
+            shared = graded_env_shared(tps, c, space, chi, trunc)
+            tables.append(walkers[frame](tps, c, space, chi, trunc, shared)
+                          .real.double().cpu())
+        out[frame] = np.einsum("s,s...->...", w[idx] / z,
+                               torch.cat(tables).numpy())
+    return out, z

@@ -1,24 +1,28 @@
-"""Monte Carlo measurement (port of the OBC bosonic branch of
-``peps_tpu/algorithm/measure.py``).
+"""Monte Carlo measurement (port of the OBC branches of
+``peps_tpu/algorithm/measure.py``): bosonic spin models, fermionic models
+in the Jordan-Wigner representation and graded fermionic states.
 
 Warm-up sweeps, then a loop of sample steps in chunks: per step
 ``sweeps_between_samples`` sweeps of every chain, the env stacks of the
-new configurations in both frames, the local energies, the diagonal
-observables and the walker observables, all from those same stacks. At
-each chunk's end the chunk's outputs move to host memory, so device
-memory does not grow with ``num_samples``. Binned statistics per
+new configurations (both frames where needed), the local energies, the
+diagonal observables and the walker observables, all from those same
+stacks. At each chunk's end the chunk's outputs move to host memory, so
+device memory does not grow with ``num_samples``. Binned statistics per
 observable, the energy's autocorrelation time and CSV dumps follow.
 
 The reference splits its graph (cheap observables in the sample scan, the
 walkers in separately jitted passes over the collected configurations) and
 caches compiled executables across calls; those are XLA:TPU workarounds.
 The port is eager: nothing is compiled, nothing is cached, and the walkers
-run in the sample loop on the stacks the energy pass built.
+run in the sample loop on the stacks the energy pass built. For a graded
+state that is one GradedEnvShared per configuration (the dressed nets,
+their stacks and the candidates), which the energy tables and both pair
+walkers share; the reference builds the stacks twice.
 
 The S+S- walker (:func:`_row_offdiag_corr`) is a scan of column transfers
-(kernel K1 on the card), batched over chains, rows and start columns.
-Fermionic models come with ROADMAP queue 1, item 10, and periodic
-boundaries with items 11-12.
+(kernel K1 on the card), batched over chains, rows and start columns; the
+pair correlators are in :mod:`peps_tpu_torch.algorithm.measure_fermion`.
+Periodic boundaries come with ROADMAP queue 1, items 11-12.
 """
 from __future__ import annotations
 
@@ -31,10 +35,15 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from peps_tpu_torch.algorithm.energy import (_local_energy,
-                                             bosonic_model_tensors,
+from peps_tpu_torch.algorithm.energy import (_local_energy, model_kind,
+                                             model_tensors,
                                              needs_transposed_frame)
-from peps_tpu_torch.algorithm.registry import MeasureContext, spin_registry
+from peps_tpu_torch.algorithm.energy_fermion import jw_tables_and_energy
+from peps_tpu_torch.algorithm.mc_evaluator import _sweep_fn
+from peps_tpu_torch.algorithm.registry import (MeasureContext,
+                                               fermion_registry,
+                                               graded_pair_observables,
+                                               spin_registry)
 from peps_tpu_torch.contraction import bmps
 from peps_tpu_torch.kernels.col_transfer import col_transfer
 from peps_tpu_torch.lattice import BoundaryCondition, transpose_tps
@@ -42,8 +51,7 @@ from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.montecarlo.statistics import (
     integrated_autocorrelation_time, mean_and_binned_error,
     mean_and_binned_error_batch)
-from peps_tpu_torch.montecarlo.sweep import UpdateRule, draw_uniforms, \
-    mc_sweep
+from peps_tpu_torch.montecarlo.sweep import UpdateRule, draw_uniforms
 from peps_tpu_torch.tps import project
 
 
@@ -77,7 +85,7 @@ class MeasurementParams:
     sweeps_between_samples: int = 1
     nchains: int = 64
     measure_offdiag_corr: bool = True
-    measure_pair_corr: bool = False   # t-J pair correlators: item 10
+    measure_pair_corr: bool = False   # t-J <Delta^dag Delta> walkers
     chunk_size: int = 0      # >0: collect in chunks, allowing graceful stop
     handle_signals: bool = False  # SIGINT/SIGTERM -> stop after the chunk
     progress: bool = False   # a console line per chunk
@@ -142,23 +150,59 @@ def standard_spin_observables(d: int = 2):
     return {"sz_values": sz, "op_a": sp, "op_b": sp.T}
 
 
+def _registry(mt, kind, params, d):
+    """The observables of a model's evaluator form mt of kind ``kind``."""
+    if kind == "bosonic":
+        return spin_registry(params) if d == 2 else []
+    ft = mt.ft if kind == "graded" else mt
+    registry = fermion_registry(ft, params)
+    if kind == "graded":
+        # the Jordan-Wigner walkers read plain projections
+        registry = [ob for ob in registry if not ob.needs_envs]
+        if params.measure_pair_corr and not ft.spinless and d == 3:
+            registry += graded_pair_observables(mt.space)
+    return registry
+
+
+def _energy_pass(tps, tps_t, c, mt, kind, chi, trunc, with_t):
+    """(e_loc [n], log|psi| [n], stacks, stacks_t) of configurations c: the
+    stacks are the graded state's GradedEnvShared or the projection's env
+    stacks (and the transposed frame's with with_t)."""
+    if kind == "graded":
+        from peps_tpu_torch.algorithm.measure_fermion import \
+            graded_env_shared
+        from peps_tpu_torch.fermion.vmc import graded_energy_and_holes
+        shared = graded_env_shared(tps, c, mt.space, chi, trunc)
+        e, _, log_abs, _ = graded_energy_and_holes(
+            tps, c, mt, chi, trunc, with_holes=False, shared=shared)
+        return e, log_abs, shared, None
+    stacks = bmps.all_env_stacks(project(tps, c), chi, trunc)
+    stacks_t = bmps.all_env_stacks(project(tps_t, c.transpose(1, 2)), chi,
+                                   trunc) if with_t else None
+    if kind == "jw":
+        e, tabs = jw_tables_and_energy(tps, c, mt, chi, trunc, False, stacks)
+        return e, tabs.log_abs_psi, stacks, stacks_t
+    e, _, log_abs, _ = _local_energy(tps, c, mt, chi, trunc, stacks,
+                                     stacks_t)
+    return e, log_abs, stacks, stacks_t
+
+
 def _sample_outputs(tps, tps_t, cfgs, mt, chi, trunc, registry, params):
     """Outputs of one sample step for every chain (on the device) and the
-    bottom stack of cfgs, which the next step's first sweep starts from."""
+    env stacks of cfgs (the next step's first sweep starts from their
+    bottoms; a graded state's are its GradedEnvShared)."""
+    kind = model_kind(mt)
     cheap = [ob for ob in registry if not ob.needs_envs]
     walkers = [ob for ob in registry if ob.needs_envs]
-    with_t = needs_transposed_frame(mt) or any(ob.uses_stacks_t
-                                               for ob in walkers)
+    with_t = (kind == "bosonic" and needs_transposed_frame(mt)) \
+        or any(ob.uses_stacks_t for ob in walkers)
     outs = {"energy": [], "log_abs_psi": []}
     outs.update({ob.key: [] for ob in registry})
     stacks_all, stacks_t_all = [], []
     for sl in bmps.chain_slices(cfgs.shape[0], params.eval_chunk):
         c = cfgs[sl]
-        stacks = bmps.all_env_stacks(project(tps, c), chi, trunc)
-        stacks_t = bmps.all_env_stacks(project(tps_t, c.transpose(1, 2)),
-                                       chi, trunc) if with_t else None
-        e, _, log_abs, _ = _local_energy(tps, c, mt, chi, trunc, stacks,
-                                         stacks_t)
+        e, log_abs, stacks, stacks_t = _energy_pass(tps, tps_t, c, mt, kind,
+                                                    chi, trunc, with_t)
         ctx = MeasureContext(tps, tps_t, c, e.real, chi, trunc)
         outs["energy"].append(e.real)
         outs["log_abs_psi"].append(log_abs)
@@ -175,7 +219,7 @@ def _sample_outputs(tps, tps_t, cfgs, mt, chi, trunc, registry, params):
                              bmps.sub_stacks(stacks_t, sl))
         for ob in walkers:
             outs[ob.key].append(ob.compute(ctx))
-    return {k: torch.cat(v) for k, v in outs.items()}, stacks.bots
+    return {k: torch.cat(v) for k, v in outs.items()}, stacks
 
 
 def measure(tps: torch.Tensor, model, params: MeasurementParams, chi: int,
@@ -185,7 +229,12 @@ def measure(tps: torch.Tensor, model, params: MeasurementParams, chi: int,
             dump_dir: str | None = None, bc=None) -> MeasureResult:
     """Run the measurement loop on tps.device and aggregate statistics.
 
-    configs [nc, Ly, Lx]: the chains' starting configurations (e.g. a
+    model: a bosonic square-lattice model or ModelTensors, a fermionic
+    model or FermionTensors (Jordan-Wigner: the bosonic sweep under
+    ``rule``, e.g. Suwa-Todo with a conservation mask), or a
+    GradedFermionModel (the env-shared graded sweep, exchange moves; with
+    measure_pair_corr on a t-J basis the graded pair walkers). configs
+    [nc, Ly, Lx]: the chains' starting configurations (e.g. a
     VMCResult's final_configs). Random numbers as in vmc_optimize: each
     sweep's uniforms come from ``sweep_uniforms()`` when given (the parity
     tests replay the reference's key stream), else from ``generator`` (a
@@ -203,13 +252,12 @@ def measure(tps: torch.Tensor, model, params: MeasurementParams, chi: int,
         raise NotImplementedError(
             "measurement with periodic boundaries: ROADMAP queue 1, items "
             "11-12")
-    if params.measure_pair_corr:
-        raise NotImplementedError(
-            "pair correlators (t-J, graded states): ROADMAP queue 1, item 10")
     dev = tps.device
-    mt = bosonic_model_tensors(model, tps.dtype, dev, "measure")
+    mt = model_tensors(model, tps.dtype, dev, "measure")
+    kind = model_kind(mt)
     ly, lx, d = tps.shape[0], tps.shape[1], tps.shape[2]
-    registry = spin_registry(params) if d == 2 else []
+    registry = _registry(mt, kind, params, d)
+    sweep, shares_stacks = _sweep_fn(tps, mt, chi, trunc, rule)
     tps_t = transpose_tps(tps)
     configs = configs.to(dev).long()
     nc = configs.shape[0]
@@ -225,8 +273,7 @@ def measure(tps: torch.Tensor, model, params: MeasurementParams, chi: int,
         from peps_tpu_torch.kernels._build import cuda_library
         cuda_library()
     for _ in range(params.num_warmup_sweeps):
-        configs, _ = mc_sweep(tps, tps_t, configs, chi, trunc,
-                              uniforms=sweep_uniforms(), rule=rule)
+        configs, _, _ = sweep(configs, sweep_uniforms(), None)
 
     stop = {"stop": False}
     old_handlers = {}
@@ -251,14 +298,13 @@ def measure(tps: torch.Tensor, model, params: MeasurementParams, chi: int,
             steps = []
             for _ in range(n):
                 for i in range(params.sweeps_between_samples):
-                    configs, st = mc_sweep(tps, tps_t, configs, chi, trunc,
-                                           uniforms=sweep_uniforms(),
-                                           bots=bots if i == 0 else None,
-                                           rule=rule)
-                    acc_c = acc_c + st.accepted
-                    tri_c = tri_c + st.trials
-                out, bots = _sample_outputs(tps, tps_t, configs, mt, chi,
-                                            trunc, registry, params)
+                    configs, a, t = sweep(configs, sweep_uniforms(),
+                                          bots if i == 0 else None)
+                    acc_c = acc_c + a
+                    tri_c = tri_c + t
+                out, stacks = _sample_outputs(tps, tps_t, configs, mt, chi,
+                                              trunc, registry, params)
+                bots = stacks.bots if shares_stacks else None
                 steps.append(out)
             collected.append({k: torch.stack([o[k] for o in steps]).cpu()
                               for k in steps[0]})

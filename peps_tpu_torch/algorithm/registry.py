@@ -1,12 +1,12 @@
-"""Observable registry, bosonic part (port of
-``peps_tpu/algorithm/registry.py``): models declare their observables as
-data.
+"""Observable registry (port of ``peps_tpu/algorithm/registry.py``):
+models declare their observables as data.
 
 Each :class:`Observable` carries a per-sample-step ``compute(ctx)`` batched
 over chains; the measurement executor evaluates every registered
 observable, aggregates binned means and errors, and dumps
-``stats/<key>.csv`` plus ``<key>_coords.txt``. The fermionic registry comes
-with ROADMAP queue 1, item 10.
+``stats/<key>.csv`` plus ``<key>_coords.txt``. Spin models take
+:func:`spin_registry`, fermionic models :func:`fermion_registry` (and
+graded t-J states :func:`graded_pair_observables`).
 """
 from __future__ import annotations
 
@@ -21,7 +21,8 @@ class MeasureContext(NamedTuple):
     """Inputs handed to Observable.compute for one sample step: config
     [nc, Ly, Lx], e_loc [nc]; stacks / stacks_t: the env stacks of these
     configurations in the normal / transposed frame when the executor has
-    them (the walker observables build their own otherwise)."""
+    them (the walker observables build their own otherwise); for a graded
+    state stacks is the configurations' GradedEnvShared."""
     tps: torch.Tensor
     tps_t: torch.Tensor
     config: torch.Tensor
@@ -119,6 +120,94 @@ def spin_registry(params) -> list:
             "spsm_col", "In-column <S+_i S-_j>", spsm_col, None,
             ("x", "y1", "y2"), needs_envs=True, uses_stacks_t=True))
     return obs
+
+
+def fermion_registry(ft, params) -> list:
+    """Fermionic observables of a FermionTensors ft: densities, density-
+    density, and with spin the down density, Sz maps, the hole density
+    (t-J) or the double occupancy (Hubbard); with measure_pair_corr on a
+    t-J basis the Jordan-Wigner singlet pair correlators of both frames."""
+    n_up = ft.n_up.cpu().numpy()
+    n_dn = ft.n_dn.cpu().numpy()
+    d = len(n_up)
+    ntot = n_up + n_dn
+    obs = [
+        Observable("n_up", "Up-electron density", _diag_map(n_up),
+                   site_coords, ("y", "x")),
+        Observable("density", "Total electron density", _diag_map(ntot),
+                   site_coords, ("y", "x")),
+        Observable("nn", "Density-density <n_i n_j>", _diag_pair(ntot),
+                   pair_coords, ("y1", "x1", "y2", "x2")),
+    ]
+    if not ft.spinless:
+        sz = 0.5 * (n_up - n_dn)
+        obs.insert(1, Observable("n_dn", "Down-electron density",
+                                 _diag_map(n_dn), site_coords, ("y", "x")))
+        obs.append(Observable("sz", "Local <Sz>", _diag_map(sz),
+                              site_coords, ("y", "x")))
+        obs.append(Observable("szsz", "All-to-all <Sz_i Sz_j>",
+                              _diag_pair(sz), pair_coords,
+                              ("y1", "x1", "y2", "x2")))
+        hole = (ntot == 0).astype(float)
+        if np.any(hole):
+            obs.append(Observable("hole_density", "Hole density <1-n_i>",
+                                  _diag_map(hole), site_coords, ("y", "x")))
+        docc = ((n_up == 1) & (n_dn == 1)).astype(float)
+        if np.any(docc):
+            obs.append(Observable(
+                "double_occupancy", "Double occupancy <n_up n_dn>",
+                _diag_map(docc), site_coords, ("y", "x")))
+    if getattr(params, "measure_pair_corr", False) and not ft.spinless \
+            and d == 3:
+        from peps_tpu_torch.algorithm.measure_fermion import (
+            tj_singlet_pair_corr_col, tj_singlet_pair_corr_row)
+
+        def pair_corr(ctx):
+            return tj_singlet_pair_corr_row(ctx.tps, ctx.config, ctx.chi,
+                                            ctx.trunc, ctx.stacks).real
+
+        def pair_corr_c(ctx):
+            return tj_singlet_pair_corr_col(ctx.tps, ctx.config, ctx.chi,
+                                            ctx.trunc, ctx.stacks_t).real
+
+        obs.append(Observable(
+            "pair_corr_row", "t-J singlet pair correlation "
+            "<Delta^dag_i Delta_j> (in-row horizontal bond pairs)",
+            pair_corr, None, ("y", "x1", "x2"), needs_envs=True,
+            uses_stacks=True))
+        obs.append(Observable(
+            "pair_corr_col", "t-J singlet pair correlation "
+            "<Delta^dag_i Delta_j> (in-column vertical bond pairs)",
+            pair_corr_c, None, ("x", "y1", "y2"), needs_envs=True,
+            uses_stacks_t=True))
+    return obs
+
+
+def graded_pair_observables(space) -> list:
+    """The env-shared pair correlators of a graded t-J state in both
+    frames; ctx.stacks is the configurations' GradedEnvShared, built once
+    in the energy pass and shared by both."""
+    from peps_tpu_torch.algorithm.measure_fermion import (
+        tj_singlet_pair_corr_graded_colshared,
+        tj_singlet_pair_corr_graded_rowshared)
+
+    def row(ctx):
+        return tj_singlet_pair_corr_graded_rowshared(
+            ctx.tps, ctx.config, space, ctx.chi, ctx.trunc, ctx.stacks)
+
+    def col(ctx):
+        return tj_singlet_pair_corr_graded_colshared(
+            ctx.tps, ctx.config, space, ctx.chi, ctx.trunc, ctx.stacks)
+
+    return [
+        Observable("pair_corr_row", "t-J singlet pair correlation (graded "
+                   "state, in-row horizontal bond pairs; env-shared walker)",
+                   row, None, ("y", "x1", "x2"), needs_envs=True,
+                   uses_stacks=True),
+        Observable("pair_corr_col", "t-J singlet pair correlation (graded "
+                   "state, in-column vertical bond pairs; env-shared "
+                   "excited-BMPS walker)", col, None, ("x", "y1", "y2"),
+                   needs_envs=True, uses_stacks=True)]
 
 
 def structure_factor_spsm_row(spsm_row_mean: np.ndarray, lx: int

@@ -1,8 +1,7 @@
 """One-call import surface of the port (port of ``peps_tpu/api.py``).
 
 It holds the names of the reference's ``__all__`` that the port has so
-far; later slices add the rest (``tj_singlet_pair_corr_row`` comes with the
-fermion measurement, and the PBC and loop-update names with theirs).
+far; later slices add the rest (the PBC and loop-update names).
 """
 from __future__ import annotations
 
@@ -18,6 +17,7 @@ from peps_tpu_torch.algorithm.exact_sum import (all_configs,
 from peps_tpu_torch.algorithm.mc_evaluator import MCParams
 from peps_tpu_torch.algorithm.measure import (MeasurementParams,
                                               MeasureResult, measure)
+from peps_tpu_torch.algorithm.measure_fermion import tj_singlet_pair_corr_row
 from peps_tpu_torch.algorithm.registry import (Observable,
                                                structure_factor_spsm_row)
 from peps_tpu_torch.algorithm.vmc_optimize import (VMCParams, VMCResult,
@@ -65,7 +65,7 @@ __all__ = [
     "simple_update_nnn", "simple_update_triangle",
     "fermion", "spin", "FermionTensors", "ModelTensors",
     "local_energy_and_holes_dressed", "psi_consistency_check",
-    "exact_sum_measure", "JastrowDress", "load_configs", "save_configs",
+    "exact_sum_measure", "tj_singlet_pair_corr_row", "JastrowDress", "load_configs", "save_configs",
     "wavefunction_sum", "expand_bond_dim", "entanglement_entropy",
     "Observable", "structure_factor_spsm_row", "fermion_ratio_tables",
     "FermionSpace", "space_for_model", "product_fermion_peps",

@@ -528,18 +528,24 @@ def chain_slices(nc: int, chunk: int | None) -> list:
     return [slice(i, min(i + step, nc)) for i in range(0, nc, step)]
 
 
-def sub_stacks(stacks: EnvStacks | None, sl: slice) -> EnvStacks | None:
-    """The chains sl of env stacks batched over a leading chain axis."""
-    return None if stacks is None else type(stacks)(*(f[sl] for f in stacks))
+def sub_stacks(stacks, sl: slice):
+    """The chains sl of env stacks (or of a NamedTuple of tensors and such
+    tuples, e.g. a GradedEnvShared) batched over a leading chain axis."""
+    if stacks is None:
+        return None
+    return type(stacks)(*(sub_stacks(f, sl) if isinstance(f, tuple)
+                          else f[sl] for f in stacks))
 
 
-def cat_stacks(parts: list) -> EnvStacks | None:
-    """Env stacks of consecutive chain slices joined along the chain axis."""
+def cat_stacks(parts: list):
+    """Env stacks (or nested NamedTuples of tensors) of consecutive chain
+    slices joined along the chain axis."""
     if parts[0] is None:
         return None
     if len(parts) == 1:
         return parts[0]
-    return type(parts[0])(*(torch.cat(f) for f in zip(*parts)))
+    return type(parts[0])(*(cat_stacks(list(f)) if isinstance(f[0], tuple)
+                            else torch.cat(f) for f in zip(*parts)))
 
 
 def close_boundary(final: torch.Tensor) -> torch.Tensor:

@@ -195,13 +195,14 @@ def _pair_tables(stacks, net, net_flip, cands, config, pi_of, ly, lx,
 
 def fermion_ratio_tables(tps, config, space, chi: int, trunc,
                          want_diag: bool = False, nets=None,
-                         stacks=None) -> FermionTables:
+                         stacks=None, cands=None) -> FermionTables:
     """All NN amplitude-ratio tables of a graded state from SHARED
     environments, for config [nc, Ly, Lx]: ratio[y, x, a, b] = psi(S with
     the bond -> (a, b)) / psi(S), sign-consistent by construction.
     want_diag adds the t2 tables from the same stacks. nets: optional
     (net, prefix-flipped net) [nc, Ly, Lx, D^4] of these configurations;
-    stacks: optional env stacks of net."""
+    stacks: optional env stacks of net; cands: optional candidates of
+    these configurations (:func:`fermion_candidates`)."""
     ly, lx = tps.shape[0], tps.shape[1]
     config = config.long()
     if nets is None:
@@ -210,7 +211,8 @@ def fermion_ratio_tables(tps, config, space, chi: int, trunc,
     net, net_flip = nets
     if stacks is None:
         stacks = bmps.all_env_stacks(net, chi, trunc)
-    cands = fermion_candidates(tps, config, space)
+    if cands is None:
+        cands = fermion_candidates(tps, config, space)
     pp = torch.as_tensor(space.phys_parity, device=config.device)
 
     def pi_of(c):

@@ -199,29 +199,38 @@ def _holes(tps, config, space, chi, trunc, net):
 def graded_energy_and_holes(tps, config, model: GradedFermionModel,
                             chi: int, trunc: TruncParams,
                             with_holes: bool = True,
-                            env_sharing: bool = True, dress=None):
+                            env_sharing: bool = True, dress=None,
+                            shared=None):
     """(e_loc [nc], holes [nc, Ly, Lx, D^4] or None, log|psi| [nc],
     mantissa [nc]) of the graded model for config [nc, Ly, Lx]; the holes
-    are O at the configuration's entries (psi_loc = 1 for K2)."""
+    are O at the configuration's entries (psi_loc = 1 for K2). shared:
+    optional GradedEnvShared of these configurations (its nets, stacks and
+    candidates serve the shared-environment tables)."""
     from peps_tpu_torch.fermion.tables import fermion_ratio_tables
 
     ft, space = model.ft, model.space
     ly, lx = tps.shape[0], tps.shape[1]
     config = config.long()
     want_diag = ft.has_diag and lx > 1 and ly > 1
-    both = fermion_project(tps, config, space, flags=(0, 1))
-    net, net_flip = both[:, 0], both[:, 1]
-    holes = stacks = None
+    if shared is not None:
+        net, net_flip = shared.net, shared.net_flip
+        stacks, cands = shared.stacks, shared.cands
+    else:
+        both = fermion_project(tps, config, space, flags=(0, 1))
+        net, net_flip = both[:, 0], both[:, 1]
+        stacks = cands = None
+    holes = None
     if with_holes:
         holes, tops, log_tops = _holes(tps, config, space, chi, trunc, net)
-        if env_sharing:
+        if env_sharing and stacks is None:
             ftops, flog = bmps.all_top_envs(bmps.flip_vertical(net), chi,
                                             trunc)
             stacks = bmps.EnvStacks(tops, torch.flip(ftops, [-5]), log_tops,
                                     torch.flip(flog, [-1]))
     if env_sharing:
         tabs = fermion_ratio_tables(tps, config, space, chi, trunc,
-                                    want_diag, (net, net_flip), stacks)
+                                    want_diag, (net, net_flip), stacks,
+                                    cands)
         ratios = {"h": tabs.ratio_h, "v": tabs.ratio_v}
         if want_diag:
             ratios.update(d=tabs.ratio_d, ad=tabs.ratio_ad)

@@ -10,6 +10,8 @@ kernel template on the shared complex tile products
 (``csrc/complex_tiles.cuh``). K4 ``fermion_dress`` (CUDA C++,
 ``csrc/fermion_dress.cu``): the fermionic sign dressing of a graded TPS
 (projection, prefix-flipped projection and candidates), all four dtypes.
-K1 also has a backward (:class:`~peps_tpu_torch.kernels.col_transfer.
+K5 ``bmps_overlap`` (CUDA C++, ``csrc/bmps_overlap.cu``): the closure of a
+top-type and a bottom-type boundary MPS, one CTA a closure, all four
+dtypes. K1 also has a backward (:class:`~peps_tpu_torch.kernels.col_transfer.
 ColTransferFunction`) whose transfers are K1 launches.
 """

@@ -78,6 +78,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
+    for name in ("bmps_overlap_f32", "bmps_overlap_f64", "bmps_overlap_c64",
+                 "bmps_overlap_c128"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
     lib.peps_cuda_error_string.argtypes = [ctypes.c_int]
     lib.peps_cuda_error_string.restype = ctypes.c_char_p
 

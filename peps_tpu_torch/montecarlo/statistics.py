@@ -1,7 +1,6 @@
 """Monte Carlo statistics (port of ``peps_tpu/montecarlo/statistics.py``):
-binned means and errors, and the autocorrelation time. The importance-
-weighted ``weighted_mean_and_binned_error_batch`` serves only the fermionic
-pair correlator and comes with ROADMAP queue 1, item 10."""
+binned means and errors, their importance-weighted form with jackknife
+errors, and the autocorrelation time."""
 from __future__ import annotations
 
 import math
@@ -45,6 +44,34 @@ def mean_and_binned_error_batch(samples: torch.Tensor):
     var = binned.var(dim=0, unbiased=False) if n_indep > 1 \
         else torch.zeros_like(mean)
     return mean, torch.sqrt(var / max(n_indep - 1, 1))
+
+
+def weighted_mean_and_binned_error_batch(samples: torch.Tensor,
+                                        log_weights: torch.Tensor):
+    """Self-normalized importance-sampling statistics with binned jackknife
+    errors, for estimators sampled from a biased distribution (samples from
+    |psi e^J|^2 with log_weights = -2 J give E_|psi|^2[X] = sum(w X) /
+    sum(w)). samples [S, C, K], log_weights [S, C]. Bins of ~sqrt(S) sweeps
+    absorb autocorrelation; the (bin, chain) blocks count as independent
+    and the ratio's error is the leave-one-block-out jackknife's. Returns
+    (means [K], stderrs [K])."""
+    s, c, k = samples.shape
+    w = torch.exp(log_weights - log_weights.max())[..., None]
+    nbins, bin_len = _bins(s)
+    usable = nbins * bin_len
+    num = (w * samples)[:usable].reshape(nbins, bin_len, c, k).sum(dim=1)
+    den = w.expand(s, c, k)[:usable].reshape(nbins, bin_len, c, k) \
+        .sum(dim=1)
+    num = num.reshape(nbins * c, k)
+    den = den.reshape(nbins * c, k)
+    tot_num, tot_den = num.sum(dim=0), den.sum(dim=0)
+    mean = tot_num / tot_den
+    nb = nbins * c
+    if nb > 1:
+        jk = (tot_num[None] - num) / (tot_den[None] - den)
+        var = (nb - 1) / nb * ((jk - jk.mean(dim=0)) ** 2).sum(dim=0)
+        return mean, torch.sqrt(var)
+    return mean, torch.zeros_like(mean)
 
 
 def autocorrelation(samples, max_lag: int | None = None) -> np.ndarray:

@@ -901,3 +901,104 @@ def test_graded_local_energy_on_the_card_matches_the_cpu(dev):
             tps.to(where), cfg.to(where), gm, 3, trunc))
     for f in ("e_loc", "o_tensor", "log_abs_psi"):
         assert _rel(getattr(res[1], f).cpu(), getattr(res[0], f)) < 1e-10
+
+
+ALL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12,
+           torch.complex64: 1e-5, torch.complex128: 1e-12}
+
+
+def _rc(gen, dev, dtype, *shape):
+    """Seeded normal values of dtype (complex: both parts)."""
+    real = torch.float32 if dtype in (torch.float32, torch.complex64) \
+        else torch.float64
+    x = torch.randn(*shape, generator=gen, device=dev, dtype=real)
+    if dtype.is_complex:
+        x = torch.complex(x, torch.randn(*shape, generator=gen, device=dev,
+                                         dtype=real))
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
+@pytest.mark.parametrize("case", ["partial", "odd_chi", "lx1", "flagship"])
+def test_bmps_overlap_equals_plain(dev, dtype, case):
+    """K5 against its plain version: chi = 5 (one partial tile of outputs
+    a thread), chi = 37 (chi^2 not a multiple of the 256 threads), Lx = 1,
+    and the flagship's per-k shape (8 configurations x 5 start lanes x 6
+    columns x 4 closures, Lx = 6, chi = 32, D = 8) with b broadcast over
+    the start lanes; each call adds one launch to the counter."""
+    from peps_tpu_torch.kernels import bmps_overlap as k5
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    lx, chi, D, a_batch, b_batch = {
+        "partial": (4, 5, 3, (7,), (7,)),
+        "odd_chi": (3, 37, 2, (2, 3), (2, 1)),
+        "lx1": (1, 16, 4, (5,), (1,)),
+        "flagship": (6, 32, 8, (8, 5, 6, 4), (8, 1, 6, 4))}[case]
+    a = _rc(gen, dev, dtype, *a_batch, lx, chi, D, chi)
+    b = _rc(gen, dev, dtype, *b_batch, lx, chi, D, chi)
+    before = k5.bmps_overlap.launches
+    mant, logw = k5.bmps_overlap(a, b)
+    assert k5.bmps_overlap.launches == before + 1
+    rm, rl = k5.bmps_overlap_plain(a, b)
+    assert mant.shape == rm.shape and logw.dtype == rl.dtype
+    # compare psi = mant exp(logw) relative to the largest
+    psi, ref = mant * torch.exp(logw - rl.max()), rm * torch.exp(rl - rl.max())
+    assert _rel(psi, ref) <= ALL_TOL[dtype]
+    assert (logw - rl).abs().max().item() <= 10 * ALL_TOL[dtype] * lx
+
+
+def _graded_walker_case(ly, lx, dtype):
+    """A seeded graded state and three configurations with supported
+    entries in the frame of the lattice's long lines."""
+    from peps_tpu_torch.fermion.peps import FermionSpace
+    gen = torch.Generator().manual_seed(ly * 10 + lx)
+    sp = FermionSpace((0, 1, 1), 2, 2)
+    shape = (ly, lx, 3, 4, 4, 4, 4)
+    tps = torch.randn(*shape, generator=gen, dtype=torch.float64)
+    if dtype.is_complex:
+        tps = torch.complex(tps, torch.randn(*shape, generator=gen,
+                                             dtype=torch.float64))
+    occ = torch.tensor([[1, 2, 0, 0], [2, 1, 1, 2], [0, 0, 2, 1]])
+    cfg = torch.stack([occ, occ.flip(0), occ.roll(1, 1)])
+    if ly > lx:
+        cfg = cfg.transpose(1, 2).flip(2)
+    return tps.to(dtype), cfg, sp
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("ly,lx", [(3, 4), (4, 3)])
+def test_graded_pair_walkers_on_the_card_match_the_cpu(dev, dtype, ly, lx):
+    """Both env-shared graded walkers (K4, K1, the sketch's K1 scans, K5)
+    and the full-recompute oracle on the card against the CPU at 3x4 (the
+    in-row pairs) and 4x3 (the in-column pairs, through K5), D = 4: within
+    1e-10, and K5 launched exactly once per end bond k >= 2 of the column
+    walker (Ly - 3 launches). chi = 6 truncates every boundary past the
+    first row, as chip_smoke's card-against-CPU checks (a chi that
+    truncates nothing leaves sketch Grams rank deficient, held only by
+    the jitter, and the values move with the summation order)."""
+    from peps_tpu_torch.algorithm import measure_fermion as mf
+    from peps_tpu_torch.kernels import bmps_overlap as k5
+    from peps_tpu_torch.linalg import TruncParams
+    tps, cfg, sp = _graded_walker_case(ly, lx, dtype)
+    chi = 6
+    trunc = TruncParams(chi, 1, 1e-12, scheme="sketch")
+    out = {}
+    for where in ("cpu", dev):
+        t, c = tps.to(where), cfg.to(where)
+        shared = mf.graded_env_shared(t, c, sp, chi, trunc)
+        before = k5.bmps_overlap.launches
+        col = mf.tj_singlet_pair_corr_graded_colshared(t, c, sp, chi, trunc,
+                                                       shared)
+        launched = k5.bmps_overlap.launches - before
+        out[str(where)] = (
+            mf.tj_singlet_pair_corr_graded_rowshared(t, c, sp, chi, trunc,
+                                                     shared).cpu(),
+            col.cpu(),
+            mf.tj_singlet_pair_corr_graded(t, c, sp, chi, trunc,
+                                           "row" if lx > 3 else "col").cpu())
+        if where != "cpu":
+            assert launched == max(ly - 3, 0)
+    for a, b in zip(out[str(dev)], out["cpu"]):
+        assert (a - b).abs().max().item() <= 1e-10 * max(
+            b.abs().max().item(), 1.0)
+    assert out["cpu"][2].abs().max().item() > 0

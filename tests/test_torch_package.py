@@ -110,6 +110,22 @@ jw = api.vmc_optimize(api.random_tps(torch.Generator().manual_seed(1), 2, 2,
                           occupancy=((1, 2), (2, 2))),
                       torch.Generator().manual_seed(0))
 assert np.isfinite(jw.energies[0]), jw.energies
+from peps_tpu_torch.algorithm.measure_fermion import (
+    graded_env_shared, tj_singlet_pair_corr_graded_colshared,
+    tj_singlet_pair_corr_graded_rowshared)
+cfg = res.final_configs
+shared = graded_env_shared(res.state, cfg, new, 4, params.trunc)
+row = tj_singlet_pair_corr_graded_rowshared(res.state, cfg, new, 4,
+                                            params.trunc, shared)
+col = tj_singlet_pair_corr_graded_colshared(res.state, cfg, new, 4,
+                                            params.trunc, shared)
+assert row.shape == (2, 2, 2, 2) and col.shape == (2, 3, 1, 1)
+assert bool(torch.isfinite(row).all() and torch.isfinite(col).all())
+meas = api.measure(res.state, gm, api.MeasurementParams(
+    num_samples=2, num_warmup_sweeps=1, measure_pair_corr=True), 4,
+    params.trunc, api.UpdateRule(), cfg)
+assert np.isfinite(meas.stats["energy"][0]), meas.stats["energy"]
+assert "pair_corr_row" in meas.stats and "pair_corr_col" in meas.stats
 leaked = sorted(k for k in sys.modules
                 if k == "peps_tpu" or k.startswith("peps_tpu.")
                 or (k.startswith("jax") and sys.modules[k] is not None))
@@ -121,7 +137,9 @@ print("OK", res.energies[0], jw.energies[0])
 def test_fermions_run_without_jax():
     """The fermion slice through the user entry points without JAX: graded
     SU with U(1) charges, to_tps_fermion, expand_bond_dim_graded, SR on a
-    GradedFermionModel, and a JW Hubbard SR step with Suwa-Todo."""
+    GradedFermionModel, a JW Hubbard SR step with Suwa-Todo, then both
+    graded pair walkers on one GradedEnvShared and a graded measure()
+    with the pair correlators."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", NO_JAX_FERMIONS],
                           capture_output=True, text=True, env=env, cwd=REPO,
@@ -241,6 +259,27 @@ def test_plain_versions_on_cpu_count_no_launch():
                      site, x)
     assert (k1.col_transfer.launches, k2.centered_o.launches,
             k3.pair_transfer.launches) == before
+
+
+def test_bmps_overlap_ships_and_launches_or_raises_on_cuda(monkeypatch):
+    """K5's source ships in csrc with its four C entries; a CUDA tensor
+    goes down the launch path (raising here, without CUDA), never to the
+    plain version, and an unknown dtype is refused; on the CPU the plain
+    version runs and counts no launch."""
+    from peps_tpu_torch.kernels import bmps_overlap as k5
+    text = (REPO / "peps_tpu_torch" / "csrc" / "bmps_overlap.cu").read_text()
+    assert 'extern "C"' in text and all(
+        f"bmps_overlap_{s}" in text for s in ("f32", "f64", "c64", "c128"))
+    before = k5.bmps_overlap.launches
+    x = torch.ones(3, 2, 4, 2, 4, dtype=torch.float64)
+    k5.bmps_overlap(x, x)
+    monkeypatch.setattr(k5, "bmps_overlap_plain", _no_plain)
+    with pytest.raises((RuntimeError, OSError)):
+        k5.bmps_overlap(_cuda_like(3, 2, 4, 2, 4), _cuda_like(2, 4, 2, 4))
+    with pytest.raises(TypeError):
+        k5.bmps_overlap(_cuda_like(2, 4, 2, 4, dtype=torch.int32),
+                        _cuda_like(2, 4, 2, 4, dtype=torch.int32))
+    assert k5.bmps_overlap.launches == before
 
 
 def test_fermion_dress_ships_and_launches_or_raises_on_cuda(monkeypatch):
