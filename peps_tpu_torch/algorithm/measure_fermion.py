@@ -48,6 +48,7 @@ from peps_tpu_torch.contraction import bmps
 from peps_tpu_torch.fermion.convert import fermion_project
 from peps_tpu_torch.fermion.exact import snake_order
 from peps_tpu_torch.fermion.tables import fermion_candidates
+from peps_tpu_torch.fermion.vmc import _phase, log_abs_psi_fermion
 from peps_tpu_torch.kernels.bmps_overlap import bmps_overlap
 from peps_tpu_torch.kernels.col_transfer import col_transfer
 from peps_tpu_torch.lattice import transpose_tps
@@ -321,12 +322,6 @@ def tj_singlet_pair_corr_col(tps, config, chi: int, trunc: TruncParams,
                             _occ_vector(config), sites, chi, trunc, stacks_t)
 
 
-def _phase(m):
-    if m.is_complex():
-        return m / torch.clamp(m.abs(), min=torch.finfo(m.real.dtype).tiny)
-    return torch.sign(m)
-
-
 def _inverse_phase(m):
     ph = _phase(m)
     return ph.conj() if ph.is_complex() else ph
@@ -355,8 +350,6 @@ def tj_singlet_pair_corr_graded(tps, config, space, chi: int,
     through :func:`~peps_tpu_torch.fermion.vmc.log_abs_psi_fermion`, chunk
     configurations a call. frame "row": [nc, Ly, Lx-1, Lx-1]; "col":
     [nc, Lx, Ly-1, Ly-1]."""
-    from peps_tpu_torch.fermion.vmc import log_abs_psi_fermion
-
     ly, lx = tps.shape[0], tps.shape[1]
     config = config.long()
     nc = config.shape[0]
