@@ -145,8 +145,11 @@ Each phase ends with a phase_end line holding its wall seconds.
      D=8 (4|4) with noise 1e-3, then vmc_optimize on the
      GradedFermionModel with SR (CG 40, shift 1e-3), 3 iterations, 1
      sample step, 2 warm-up sweeps, chi=32, sketch, 32 chains, eval_chunk
-     8, float32 (seconds per evaluation, K1 forward and backward, K2, K3
-     and K4 launches, peak memory); checks: the SU estimate per site
+     8, float32 (seconds per evaluation, K1, K1's backward, K2, K3 and
+     K4 launches, peak memory), the split of one SR iteration
+     (graded_breakdown: sweep, holes, tables, the rest of the local
+     energy, SR solve, with every ColTransferFunction backward call
+     counted: one backward launch and no K1 launch each); checks: the SU estimate per site
      finite and below the Neel state's -0.736 (53 bonds at -J/2 over 36
      sites, from the channel tables), every SR iteration's E/site in
      (-1.35, -0.736), N_up = N_dn = 17 in every chain, acceptance above 0,
@@ -182,17 +185,19 @@ walker's per-k shape (8 configurations x 5 start bonds x 6 columns x 4
 closures, Lx=6, chi=32, D=8, b broadcast over the start bonds) in all four
 dtypes against its plain version (float32 and complex64 to 1e-5, float64
 and complex128 to 1e-12), with both times, the bound (FP32 or DMMA peak,
-or bytes) and the share of it reached.
+or bytes), the share of it reached and the launch plan (lanes a CTA).
 Phase 2 also holds the fermion slice's kernels (kernels_fermion lines): K4
 (fermion_dress) in its three outputs at 6x6, D=8, d=3, 32 chains (the
 projection, the prefix-flipped projection, one row's candidates) in all
 four dtypes, exactly equal to its plain version, with its time, the plain
 version's, a copy_ of the output's bytes and the bytes bound; and K1's
-backward (the env, top and bot gradients are K1 launches) at the graded
-holes' shapes (the sketch V and W scans, the pair traces; a chunk of 8
-chains) in all four dtypes, every input's gradient within 1e-5 / 1e-12 of
-autograd through the plain transfer, timed against the plain chain's
-backward with its bound.
+backward (csrc/col_transfer_backward.cu: one launch a backward call for
+every requested gradient) at the graded holes' shapes (the sketch V and W
+scans, the pair traces; a chunk of 8 chains) in all four dtypes, every
+input's gradient within 1e-5 / 1e-12 of autograd through the plain
+transfer, one launch and no K1 launch in the backward, timed against the
+plain chain's backward with its bound (the shared chain's products) and
+the launch plan.
 Phase 2 also holds K1 at the walker's shape (2048 items, top, bot and site
 broadcast over the start column) and at the 3-site window's (32 chains x 6
 candidates, top and bot broadcast over the candidates, the left env too in
@@ -2167,57 +2172,57 @@ def k1_backward_cases(dtype, device, gen):
 
 
 def k1_backward_work(views, needs, g):
-    """(flops, bytes) of one backward of K1 on left-form views: the three
-    transfer-shaped gradients asked for (K1's three products each) and the
-    site gradient's (env.top)(bot.g) grouping, env.top at the batch env and
-    top broadcast to; the inputs and g read once, the gradients written
+    """(flops, bytes) of one backward of K1 on left-form views: the
+    products of the shared chain the requested gradients need (csrc/
+    col_transfer_backward.cu: X = bot.G and P = env.top, R = site.X and
+    F = site.P, then the site gradient P.X, the env and top gradients
+    top.R and env.R, the bot gradient F.G), each at every item of the
+    broadcast batch, P and the env and top gradients' at every distinct
+    env.top where env and top share their broadcast (a 4-real-FMA complex
+    multiply-add); the inputs and g read once, the gradients written
     once."""
     import torch
-    from peps_tpu_torch.kernels import col_transfer as k1
+    from peps_tpu_torch.kernels import col_transfer_backward as kb
     env, top, site, bot = views
-    bviews = k1.col_transfer_backward_views(g, env, top, site, bot)
-    flops = 0
-    for name, need in zip(("env", "top", None, "bot"), needs):
-        if name and need:
-            ops = bviews[name]
-            batch = torch.broadcast_shapes(ops[0].shape[:-3],
-                                           ops[1].shape[:-3],
-                                           ops[2].shape[:-4],
-                                           ops[3].shape[:-3])
-            out = torch.empty(*batch, ops[1].shape[-1], ops[2].shape[-1],
-                              ops[3].shape[-1], device="meta",
-                              dtype=env.dtype)
-            flops += k1_work(*ops, out)[0]
-    if needs[2]:
-        # env.top at env and top's broadcast batch (a site candidate dim
-        # they broadcast over is not multiplied), bot.g and the join at g's
-        na, nl, nc = env.shape[-3:]
-        nu, nA = top.shape[-2:]
-        nd, nr = site.shape[-2:]
-        nC = bot.shape[-1]
-        lt_items = math.prod(torch.broadcast_shapes(env.shape[:-3],
-                                                    top.shape[:-3]))
-        items = math.prod(g.shape[:-3])
-        macs = lt_items * na * nl * nc * nu * nA \
-            + items * (nc * nd * nC * nA * nr + nl * nc * nu * nA * nd * nr)
-        flops += 2 * macs * (4 if env.is_complex() else 1)
+    na, nl, nc = env.shape[-3:]
+    nu, nA = top.shape[-2:]
+    nd, nr = site.shape[-2:]
+    nC = bot.shape[-1]
+    ne, nt, ns, nb = needs
+    items = math.prod(g.shape[:-3])
+    # where env and top share their broadcast (the plan's "share"), P and
+    # the env and top gradients' products run once per distinct env.top
+    et_items = math.prod(torch.broadcast_shapes(env.shape[:-3],
+                                                top.shape[:-3])) \
+        if kb.launch_meta(g, *views, needs)[0]["share"] else items
+    macs = (items * (nc * nd * nA * nr * nC * (ne or nt or ns)
+                     + nu * nl * nc * nA * nd * nr * ((ne or nt) + nb + ns)
+                     + nc * nd * nC * nA * nr * nb)
+            + et_items * (nl * nc * nu * nA * na * (ns or nb)
+                          + na * nl * nc * nu * nA * (ne + nt)))
+    flops = 2 * macs * (4 if env.is_complex() else 1)
     ins = sum(t.numel() for t in (*views, g))
     outs = sum(t.numel() for t, n in zip(views, needs) if n)
     return flops, (ins + outs) * env.element_size()
 
 
 def k1_backward_phase(device, peak, gen):
-    """Phase 2, K1's backward (ColTransferFunction: the env, top and bot
-    gradients are K1 launches) at the graded holes' shapes in all four
-    dtypes, each input's gradient held to autograd of col_transfer_plain
-    (1e-5 / 1e-12 of max |plain|), the backward timed in turns with the
-    plain chain's backward, with its bound. Returns the float32 pair
-    traces' record."""
+    """Phase 2, K1's backward (ColTransferFunction: one launch of
+    csrc/col_transfer_backward.cu for every requested gradient) at the
+    graded holes' shapes in all four dtypes, each input's gradient held to
+    autograd of col_transfer_plain (1e-5 / 1e-12 of max |plain|), exactly
+    one backward launch and no K1 launch inside the backward, the backward
+    timed in turns with the plain chain's backward, with its bound, the
+    launch plan and the compiled kernel's registers. Returns the float32
+    pair traces' record, with every case's (name, dtype, ms, plain_ms,
+    bound_ms) under "cases"."""
     import torch
     from peps_tpu_torch.kernels import col_transfer as k1
-    rec = None
+    from peps_tpu_torch.kernels import col_transfer_backward as kb
+    rec, cases = None, []
     for dt in ("float32", "float64", "complex64", "complex128"):
         dtype = getattr(torch, dt)
+        diag = kb.backward_diagnostic(dtype)
         for name, form, ops, needs in k1_backward_cases(dtype, device, gen):
             grads, graphs = {}, {}
             with torch.no_grad():
@@ -2237,12 +2242,15 @@ def k1_backward_phase(device, peak, gen):
                     out = k1.col_transfer(*xs) if path == "kern" else \
                         k1.col_transfer_plain(*xs)
                 req = [x for x in xs if x.requires_grad]
-                before = k1.col_transfer.backward_launches
+                before = (kb.col_transfer_backward.launches,
+                          k1.col_transfer.launches)
                 grads[path] = torch.autograd.grad(out, req, w,
                                                   retain_graph=True)
-                if path == "kern" and k1.col_transfer.backward_launches \
-                        == before:
-                    fail(f"K1 backward {name} {dt}: no K1 launch")
+                after = (kb.col_transfer_backward.launches,
+                         k1.col_transfer.launches)
+                if path == "kern" and after != (before[0] + 1, before[1]):
+                    fail(f"K1 backward {name} {dt}: {after[0] - before[0]} "
+                         f"backward and {after[1] - before[1]} K1 launches")
                 graphs[path] = (out, req, w)
             torch.cuda.synchronize()
             rels = [((a - b).abs().max() / b.abs().max()).item()
@@ -2254,11 +2262,13 @@ def k1_backward_phase(device, peak, gen):
                                                    retain_graph=True)
 
             t = _in_turns({"kern": bw("kern"), "plain": bw("plain")}, 5)
-            flops, nbytes = k1_backward_work(k1_views(form, ops), needs,
-                                             graphs["plain"][0])
+            views = k1_views(form, ops)
+            flops, nbytes = k1_backward_work(views, needs, graphs["plain"][0])
             flop_s = flops / _rate(peak, dtype)
             byte_s = nbytes / HBM_BPS
             bound_ms = max(flop_s, byte_s) * 1e3
+            plan, _ = kb.launch_meta(graphs["plain"][0].detach(), *views,
+                                     needs, k1.sm_count(device))
             r = {"kernel": "col_transfer_backward", "case": name,
                  "form": form, "dtype": dt, "rel_err": max(rels),
                  "rel_err_per_input": rels,
@@ -2268,27 +2278,34 @@ def k1_backward_phase(device, peak, gen):
                  "bytes": nbytes, "bound_ms": bound_ms,
                  "bound_by": "operations" if flop_s >= byte_s else "bytes",
                  "pct_of_bound": 100 * bound_ms / t["kern"],
-                 "library_ms": None}
+                 "library_ms": None,
+                 "plan": {k: plan[k] for k in ("cluster", "clusters", "ctas",
+                                               "group_items", "groups",
+                                               "smem_bytes")},
+                 **diag}
             log("kernels_fermion", **r)
+            cases.append({k: r[k] for k in ("case", "dtype", "ms", "plain_ms",
+                                            "bound_ms")})
             if not max(rels) <= TOL[dt]:
                 fail(f"K1 backward {name} {dt}: rel err {rels} > {TOL[dt]}")
             if dt == "float32" and name == "pair_traces":
                 rec = r
             del grads, graphs
-    return rec
+    return {**rec, "cases": cases}
 
 
 def fermion_counts():
-    """K1 (forward and backward), K2, K3, K4 and K5's launch counters as
-    they stand (not reset)."""
+    """K1, K1's backward, K2, K3, K4 and K5's launch counters as they stand
+    (not reset)."""
     from peps_tpu_torch.kernels.bmps_overlap import bmps_overlap
     from peps_tpu_torch.kernels.centered_o import centered_o
     from peps_tpu_torch.kernels.col_transfer import col_transfer
+    from peps_tpu_torch.kernels.col_transfer_backward import \
+        col_transfer_backward
     from peps_tpu_torch.kernels.fermion_dress import fermion_dress
     from peps_tpu_torch.kernels.pair_transfer import pair_transfer
-    return {"col_transfer_forward": col_transfer.launches
-            - col_transfer.backward_launches,
-            "col_transfer_backward": col_transfer.backward_launches,
+    return {"col_transfer_forward": col_transfer.launches,
+            "col_transfer_backward": col_transfer_backward.launches,
             "centered_o": centered_o.launches,
             "pair_transfer": pair_transfer.launches,
             "fermion_dress": fermion_dress.launches,
@@ -2296,17 +2313,18 @@ def fermion_counts():
 
 
 def fermion_counters():
-    """K1 (forward and backward), K2, K3, K4 and K5's launch counters, set
-    to 0; returns a reader of {name: launches since}."""
+    """K1, K1's backward, K2, K3, K4 and K5's launch counters, set to 0;
+    returns a reader of {name: launches since}."""
     from peps_tpu_torch.kernels.bmps_overlap import bmps_overlap
     from peps_tpu_torch.kernels.centered_o import centered_o
     from peps_tpu_torch.kernels.col_transfer import col_transfer
+    from peps_tpu_torch.kernels.col_transfer_backward import \
+        col_transfer_backward
     from peps_tpu_torch.kernels.fermion_dress import fermion_dress
     from peps_tpu_torch.kernels.pair_transfer import pair_transfer
-    for k in (col_transfer, centered_o, pair_transfer, fermion_dress,
-              bmps_overlap):
+    for k in (col_transfer, col_transfer_backward, centered_o, pair_transfer,
+              fermion_dress, bmps_overlap):
         k.launches = 0
-    col_transfer.backward_launches = 0
     return fermion_counts
 
 
@@ -2589,6 +2607,7 @@ def graded_breakdown(res, gm, vp, device):
     from peps_tpu_torch.fermion import sweep as fsweep
     from peps_tpu_torch.fermion import tables as ftables
     from peps_tpu_torch.fermion import vmc as fvmc
+    from peps_tpu_torch.kernels import col_transfer as k1
     from peps_tpu_torch.montecarlo.sweep import draw_uniforms
     from peps_tpu_torch.optimizer.optimizer import sr_natural_gradient
     tps, cfg = res.state, res.final_configs
@@ -2615,12 +2634,27 @@ def graded_breakdown(res, gm, vp, device):
                (ftables, "fermion_ratio_tables", "tables"),
                (mc_evaluator, "_center_scale", "k2"))
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+    # every ColTransferFunction backward call, with the launches inside it
+    bwd = {"calls": 0, "backward_launches": 0, "k1_launches": 0}
+    real_backward = k1.ColTransferFunction.backward
+
+    def counted_backward(ctx, g):
+        c0 = fermion_counts()
+        out = real_backward(ctx, g)
+        c1 = fermion_counts()
+        bwd["calls"] += 1
+        bwd["backward_launches"] += c1["col_transfer_backward"] \
+            - c0["col_transfer_backward"]
+        bwd["k1_launches"] += c1["col_transfer_forward"] \
+            - c0["col_transfer_forward"]
+        return out
     gen = torch.Generator(device=device).manual_seed(8)
     mc = MCParams(num_samples=1, num_warmup_sweeps=0,
                   nchains=vp.mc.nchains, eval_chunk=vp.mc.eval_chunk)
     try:
         for mod, attr, name in targets:
             setattr(mod, attr, wrap(name, getattr(mod, attr)))
+        k1.ColTransferFunction.backward = staticmethod(counted_backward)
         evaluate = wrap("evaluation", mc_evaluator.mc_energy_grad)
         ev, _, _ = evaluate(
             tps, cfg, gm, vp.chi, vp.trunc, mc,
@@ -2631,6 +2665,7 @@ def graded_breakdown(res, gm, vp, device):
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+        k1.ColTransferFunction.backward = staticmethod(real_backward)
 
     def less(name, *parts):
         return {"seconds": incl[name] - sum(incl[p] for p in parts),
@@ -2647,8 +2682,14 @@ def graded_breakdown(res, gm, vp, device):
            "evaluation_s": incl["evaluation"],
            "seconds": {k: v["seconds"] for k, v in parts.items()},
            "share": {k: v["seconds"] / total for k, v in parts.items()},
-           "launches": {k: v["launches"] for k, v in parts.items()}}
+           "launches": {k: v["launches"] for k, v in parts.items()},
+           "backward": bwd}
     log("fermions", step="graded_breakdown", **rec)
+    if not (bwd["calls"] > 0 and bwd["backward_launches"] == bwd["calls"]
+            and bwd["k1_launches"] == 0):
+        fail(f"graded holes: {bwd['backward_launches']} backward launches "
+             f"and {bwd['k1_launches']} K1 launches in {bwd['calls']} "
+             "backward calls (one and none each expected)")
     return rec
 
 
@@ -2791,8 +2832,11 @@ def k5_phase(device, peak, gen):
         bound_ms = max(flops / rate, nbytes / HBM_BPS) * 1e3
         bound_by = "operations" if flops / rate >= nbytes / HBM_BPS \
             else "bytes"
+        meta = k5.launch_meta(a, b)[3]
         r = {"kernel": "bmps_overlap", "case": "colshared_step",
              "dtype": dt, "batch": list(mant.shape), "items": items,
+             "plan": dict(zip(("body", "lanes", "nbuf", "vec", "chi_p",
+                               "smem_bytes"), meta[-6:])),
              "rel_err": rel, "max_abs_err": abs_err, "log_weight_err": log_err,
              "ms": t["kern"], "plain_ms": t["plain"], "flops": flops,
              "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2943,10 +2987,19 @@ def fermion_measure_flagship(f, device):
         pair_corr_row_max_abs=float(np.abs(tables["pair_corr_row"]).max()),
         pair_corr_col_max_abs=float(np.abs(tables["pair_corr_col"]).max()),
         launches=launches, peak_mem_GB=peak_gb, phase_wall_s=wall)
+    # a sample step's launches: one sweep (the sweeps' mean) plus the
+    # energy pass (the env build inside it) and both walkers of a step
+    per_step_launches = {
+        k: counts["sweep"][k] / len(secs["sweep"])
+        + sum(counts[part][k] for part in ("energy_pass", "row_walker",
+                                           "col_walker")) / s
+        for k in counts["sweep"]}
     log("fermion_measure", step="flagship_step_split",
         step_s=step_s, seconds=per_step,
         share={k: v / step_s for k, v in per_step.items()},
-        calls={k: len(v) for k, v in secs.items()}, launches=counts)
+        calls={k: len(v) for k, v in secs.items()}, launches=counts,
+        launches_per_step=per_step_launches,
+        launches_per_step_total=sum(per_step_launches.values()))
     finite = all(np.all(np.isfinite(v)) for pair in st.values() for v in pair)
     if not finite:
         fail("fermion measure: non-finite statistics")
@@ -3231,15 +3284,17 @@ def main():
          "launches_bosonic_rest": launches_rest["col_transfer"],
          "launches_bosonic_close": launches_close["col_transfer"],
          "launches_complex": launches_cx["col_transfer"],
-         "launches_fermions": graded["col_transfer_forward"]
-         + graded["col_transfer_backward"],
-         "launches_backward_fermions": graded["col_transfer_backward"],
-         "launches_fermion_measure": launches_fm["col_transfer_forward"]
-         + launches_fm["col_transfer_backward"],
-         "backward": {k: bwd[k] for k in ("case", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "max_abs_err", "rel_err")},
+         "launches_fermions": graded["col_transfer_forward"],
+         "launches_fermion_measure": launches_fm["col_transfer_forward"],
          **kern["col_transfer"]},
+        {"name": "col_transfer_backward", "route": "cuda",
+         "source": "peps_tpu_torch/csrc/col_transfer_backward.cu",
+         "replaces": "peps_tpu/fermion/vmc.py:301",
+         "launches": graded["col_transfer_backward"],
+         "launches_fermion_measure": launches_fm["col_transfer_backward"],
+         **{k: bwd[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms",
+                                "cases")}},
         {"name": "centered_o", "route": "cuda",
          "source": "peps_tpu_torch/csrc/centered_o.cu",
          "replaces": "peps_tpu/algorithm/mc_evaluator.py:316",

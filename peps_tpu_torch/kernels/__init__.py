@@ -11,7 +11,9 @@ kernel template on the shared complex tile products
 ``csrc/fermion_dress.cu``): the fermionic sign dressing of a graded TPS
 (projection, prefix-flipped projection and candidates), all four dtypes.
 K5 ``bmps_overlap`` (CUDA C++, ``csrc/bmps_overlap.cu``): the closure of a
-top-type and a bottom-type boundary MPS, one CTA a closure, all four
-dtypes. K1 also has a backward (:class:`~peps_tpu_torch.kernels.col_transfer.
-ColTransferFunction`) whose transfers are K1 launches.
+top-type and a bottom-type boundary MPS, one CTA the closures that share a
+bottom, all four dtypes. K1's backward ``col_transfer_backward`` (CUDA C++,
+``csrc/col_transfer_backward.cu``; under autograd through
+:class:`~peps_tpu_torch.kernels.col_transfer.ColTransferFunction`): every
+requested gradient of a transfer in one launch, all four dtypes.
 """

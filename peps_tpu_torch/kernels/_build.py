@@ -83,6 +83,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
+    for name in ("col_transfer_backward_f32", "col_transfer_backward_f64",
+                 "col_transfer_backward_c64", "col_transfer_backward_c128"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * 12
+        fn.restype = ctypes.c_int
+    lib.col_transfer_backward_attributes.argtypes = [ctypes.c_int, ptr]
+    lib.col_transfer_backward_attributes.restype = ctypes.c_int
     lib.peps_cuda_error_string.argtypes = [ctypes.c_int]
     lib.peps_cuda_error_string.restype = ctypes.c_char_p
 

@@ -14,20 +14,33 @@ stride 0, never copied. This is
 two einsums, a norm and a divide per column that XLA fused on the TPU.
 
 On a CPU tensor :func:`bmps_overlap` runs the plain version; on a CUDA
-tensor it launches the hand-written kernel (``csrc/bmps_overlap.cu``, one
-CTA per item holding m in shared memory across all columns; float32,
-float64, complex64 and complex128) or raises; there is no fallback.
+tensor it launches the hand-written kernel (``csrc/bmps_overlap.cu``: one
+CTA takes the items that share a b slab, stages each b_v once for all of
+them and keeps every item's m in shared memory across all columns;
+float32, float64, complex64 and complex128) or raises; there is no
+fallback. :func:`overlap_plan` is the launch plan (lanes a CTA, buffers,
+shared bytes), in Python so that the CPU tests can check it.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-from peps_tpu_torch.kernels.col_transfer import _merge_batch
+from peps_tpu_torch.kernels.col_transfer import _merge_batch, sm_count
 
 MAX_BATCH = 4
 MAX_CHI = 64        # the kernel keeps chi^2 / 256 outputs a thread (<= 16)
+MAX_LANES = 16      # items a CTA of the staged body (csrc kMaxLanes)
+SMEM_PER_BLOCK = 232448
+SMEM_PER_SM = 233472       # the H100's shared memory an SM (1 KB a CTA kept)
+H100_SMS = 132
+# the staged body's row padding (elements) per dtype (csrc Staged<T>::pad)
+PAD = {torch.float32: 4, torch.complex64: 2, torch.float64: 4,
+       torch.complex128: 2}
+ITEM = {torch.float32: 4, torch.float64: 8, torch.complex64: 8,
+        torch.complex128: 16}
 ENTRIES = {torch.float32: "bmps_overlap_f32",
            torch.float64: "bmps_overlap_f64",
            torch.complex64: "bmps_overlap_c64",
@@ -64,6 +77,44 @@ def entry_name(dtype) -> str:
     return ENTRIES[dtype]
 
 
+def staged_smem(dtype, chi_p, lanes, nbuf):
+    """Shared bytes of a staged CTA: m and the accumulator of each lane,
+    nbuf buffers of b_v and of a lane's a_v, and two of T, each chi_p x
+    (chi_p + pad); the warps' partial sums and the lanes' log weights."""
+    blk = chi_p * (chi_p + PAD[dtype]) * ITEM[dtype]
+    real = ITEM[dtype] // (2 if dtype.is_complex else 1)
+    return (2 * lanes + 2 * nbuf + 2) * blk + (8 + MAX_LANES) * real
+
+
+def overlap_plan(dtype, chi, lane_items, groups, sms=H100_SMS):
+    """The launch plan of ``groups`` groups of ``lane_items`` items that
+    share a b slab (the lanes), chi padded to chi_p (a multiple of 16).
+    The staged body with two buffers where they fit, else one; the lanes a
+    CTA minimize the waves of CTAs (as many resident an SM as the shared
+    memory holds) times the lanes each runs (plus half a lane for staging
+    b), the larger count on a tie: sharing b saves reads of it, more CTAs
+    an SM hide the stages' barriers. Where no staged CTA fits (complex128
+    at chi > 48), the simple body: one CTA an item."""
+    chi_p = -(-chi // 16) * 16
+    best = None
+    for nbuf in (2, 1):
+        for lanes in range(1, min(lane_items, MAX_LANES) + 1):
+            smem = staged_smem(dtype, chi_p, lanes, nbuf)
+            if smem > SMEM_PER_BLOCK:
+                break
+            ctas = groups * -(-lane_items // lanes)
+            resident = max(1, min(8, SMEM_PER_SM // (smem + 1024)))
+            cost = -(-ctas // (sms * resident)) * (lanes + 0.5)
+            if best is None or cost <= best[0]:
+                best = (cost, lanes, smem)
+        if best is not None:
+            return {"body": "staged", "lanes": best[1], "nbuf": nbuf,
+                    "chi_p": chi_p, "smem_bytes": best[2],
+                    "ctas": groups * -(-lane_items // best[1])}
+    return {"body": "simple", "lanes": 1, "nbuf": 0, "chi_p": chi,
+            "smem_bytes": 0, "ctas": groups * lane_items}
+
+
 def launch_meta(a, b):
     """(batch shape, a, b, meta list) of a kernel call: the operands with
     contiguous slabs, the batch merged to at most MAX_BATCH dimensions."""
@@ -94,6 +145,21 @@ def launch_meta(a, b):
     for s in strides:
         meta += [0] * pad + s
     meta += [lx, chi, dv]
+    # lane dims: b broadcast over them (a slab shared by their items)
+    sa, sb = ([0] * pad + s for s in strides)
+    size = [1] * pad + shape
+    lane = [int(size[d] > 1 and sb[d] == 0 and sa[d] != 0)
+            for d in range(MAX_BATCH)]
+    lane_items = math.prod(n for n, f in zip(size, lane) if f)
+    groups = math.prod(n for n, f in zip(size, lane) if not f)
+    plan = overlap_plan(a.dtype, chi, lane_items, groups,
+                        sm_count(a.device))
+    item = a.element_size()
+    vec = int(chi * item % 16 == 0 and a.data_ptr() % 16 == 0
+              and b.data_ptr() % 16 == 0
+              and all(x * item % 16 == 0 for x in sa + sb))
+    meta += lane + [("simple", "staged").index(plan["body"]), plan["lanes"],
+                    plan["nbuf"], vec, plan["chi_p"], plan["smem_bytes"]]
     return batch, a, b, meta
 
 

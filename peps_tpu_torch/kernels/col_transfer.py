@@ -448,7 +448,8 @@ def _launch(env, top, site, bot):
 def col_transfer(env, top, site, bot):
     """K1 wrapper. CPU tensors: plain version. CUDA tensors: the kernel;
     where autograd records (an operand requires grad), through
-    :class:`ColTransferFunction`, whose backward is K1 launches too."""
+    :class:`ColTransferFunction`, whose backward is one launch of K1's
+    backward kernel (``kernels/col_transfer_backward.py``)."""
     if env.device.type == "cpu":
         return col_transfer_plain(env, top, site, bot)
     if env.device.type != "cuda":
@@ -461,7 +462,8 @@ def col_transfer(env, top, site, bot):
 
 
 # ---------------------------------------------------------------------------
-# backward: three of the four gradients are K1 transfers on permuted views
+# backward: the plain chain (three transfers on permuted views and a grouped
+# einsum); on the card ColTransferFunction launches csrc/col_transfer_backward
 # ---------------------------------------------------------------------------
 
 def _conj(x):
@@ -499,11 +501,11 @@ def col_transfer_backward(g, env, top, site, bot, needs, transfer):
     """Gradients (torch's convention: grad_out times the conjugate of the
     other operands) of the left transfer with respect to (env, top, site,
     bot), each reduced to its operand's shape; None where ``needs`` is
-    False. The env, top and bot gradients are one ``transfer`` each
-    (the kernel launch on the card, :func:`col_transfer_plain` in the CPU
-    tests), on conj(g) with the result conjugated; the site gradient is the
-    hole form (env.top)(bot.g) grouped as ``bmps.punch_holes_row``."""
-    before = col_transfer.launches
+    False. The env, top and bot gradients are one ``transfer`` each (with
+    :func:`col_transfer_plain`, the plain version of K1's backward kernel;
+    ``kernels/col_transfer_backward.py``), on conj(g) with the result
+    conjugated; the site gradient is the hole form (env.top)(bot.g)
+    grouped as ``bmps.punch_holes_row``."""
     gc = _conj(g)
     views = col_transfer_backward_views(gc, env, top, site, bot)
     out = []
@@ -518,26 +520,26 @@ def col_transfer_backward(g, env, top, site, bot, needs, transfer):
             "...lcuA,...cdAr->...uldr", lt, br)), site.shape)
     grad_bot = _reduce_to(_conj(transfer(*views["bot"])), bot.shape) \
         if needs[3] else None
-    col_transfer.backward_launches += col_transfer.launches - before
     return out[0], out[1], grad_site, grad_bot
 
 
 class ColTransferFunction(torch.autograd.Function):
     """K1 under autograd: forward = ``transfer`` (the kernel launch on the
-    card), backward = :func:`col_transfer_backward` with the same
-    transfer, computing only the gradients autograd asks for."""
+    card), backward = ``kernels.col_transfer_backward.col_transfer_backward``
+    (one launch of K1's backward kernel on CUDA tensors, the plain chain on
+    CPU tensors), computing only the gradients autograd asks for."""
 
     @staticmethod
     def forward(ctx, env, top, site, bot, transfer):
         ctx.save_for_backward(env, top, site, bot)
-        ctx.transfer = transfer
         return transfer(env, top, site, bot)
 
     @staticmethod
     def backward(ctx, g):
+        from peps_tpu_torch.kernels.col_transfer_backward import \
+            col_transfer_backward as backward
         env, top, site, bot = ctx.saved_tensors
-        grads = col_transfer_backward(g, env, top, site, bot,
-                                      ctx.needs_input_grad[:4], ctx.transfer)
+        grads = backward(g, env, top, site, bot, ctx.needs_input_grad[:4])
         return (*grads, None)
 
 
@@ -572,9 +574,6 @@ def col_transfer_diagnostic(env, top, site, bot):
 
 
 col_transfer.launches = 0
-# the kernel launches made inside col_transfer_backward (also counted in
-# ``launches``); a backward on col_transfer_plain adds none
-col_transfer.backward_launches = 0
 
 
 def col_transfer_right(renv, top, site, bot, transfer=col_transfer):

@@ -845,9 +845,11 @@ def test_fermion_dress_equals_plain_exactly(dev, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
                                    torch.complex64, torch.complex128])
 def test_col_transfer_backward_equals_plain_autograd(dev, dtype):
-    """The gradients of every K1 input through ColTransferFunction (three
-    of them K1 launches) against autograd of col_transfer_plain, at a
-    broadcast batch like the sketch scans'."""
+    """The gradients of every K1 input through ColTransferFunction (one
+    launch of K1's backward kernel, no K1 launch inside the backward)
+    against autograd of col_transfer_plain, at a broadcast batch like the
+    sketch scans'."""
+    from peps_tpu_torch.kernels import col_transfer_backward as kb
     gen = torch.Generator().manual_seed(3)
     tol = 1e-5 if dtype in (torch.float32, torch.complex64) else 1e-12
 
@@ -862,15 +864,77 @@ def test_col_transfer_backward_equals_plain_autograd(dev, dtype):
     grads = {}
     for where in ("cpu", dev):
         xs = [o.detach().to(where).requires_grad_(True) for o in ops]
-        before = k1.col_transfer.backward_launches
         out = k1.col_transfer(*xs) if where == dev else \
             k1.col_transfer_plain(*xs)
+        before = (kb.col_transfer_backward.launches, k1.col_transfer.launches)
         (out * w.to(where)).real.sum().backward()
         if where == dev:
-            assert k1.col_transfer.backward_launches == before + 3
+            assert (kb.col_transfer_backward.launches,
+                    k1.col_transfer.launches) == (before[0] + 1, before[1])
         grads[str(where)] = [x.grad.cpu() for x in xs]
     for a, b in zip(grads[str(dev)], grads["cpu"]):
         assert _rel(a, b) <= tol
+
+
+def _backward_case(name, dtype, gen, dev):
+    """(form, operands, needs) of a K1 backward card case: the graded
+    holes' sketch V (right form, the block in the bot slot) and W scans and
+    the pair traces (env, top and bot broadcast over a candidate dim) at
+    6x6, D=8, chi=32, a chunk of 8 chains; a small case with every
+    operand broadcast somewhere and two batch dims."""
+    def r(*shape):
+        return _rc(gen, dev, dtype, *shape)
+
+    chi, D, losk = 32, 8, 40
+    site = (D, D, D, D)
+    if name == "sketch_v":
+        return "right", (r(8, chi, D, chi), r(8, chi, D, chi), r(8, *site),
+                         r(chi, D, chi)), (True, True, True, False)
+    if name == "sketch_w":
+        return "left", (r(8, chi, D, losk), r(8, chi, D, chi), r(8, *site),
+                        r(losk, D, losk)), (True, True, True, False)
+    if name == "pair_traces":
+        return "left", (r(8, 6, 5, 1, chi, D, chi), r(8, 6, 5, 1, chi, D, chi),
+                        r(8, 6, 5, 3, *site), r(8, 6, 5, 1, chi, D, chi)), \
+            (True, True, True, True)
+    return "left", (r(1, 3, 7, 3, 9), r(4, 3, 7, 2, 6), r(4, 1, 2, 3, 5, 3),
+                    r(4, 3, 9, 5, 11)), (True, False, True, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
+@pytest.mark.parametrize("case", ["sketch_v", "sketch_w", "pair_traces",
+                                  "mixed"])
+@pytest.mark.parametrize("cluster", [None, 1, 8])
+def test_col_transfer_backward_kernel_cases(dev, dtype, case, cluster,
+                                            monkeypatch):
+    """K1's backward kernel against autograd of col_transfer_plain at the
+    graded holes' shapes and a mixed broadcast, at the plan's cluster size
+    and at 1 and 8 CTAs a cluster: every requested gradient within 1e-5
+    (f32, complex64) / 1e-12 (f64, complex128) of max |plain|, one launch."""
+    from peps_tpu_torch.kernels import col_transfer_backward as kb
+    if cluster is not None:
+        plan = kb.backward_plan
+        monkeypatch.setattr(kb, "backward_plan", lambda *a, **k: plan(
+            *a, **{**k, "cluster": cluster}))
+        monkeypatch.setattr(kb, "_META_CACHE", {})
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    form, ops, needs = _backward_case(case, dtype, gen, dev)
+    grads = []
+    for fn in (k1.col_transfer, k1.col_transfer_plain):
+        xs = [o.detach().clone().requires_grad_(n) for o, n in zip(ops, needs)]
+        out = k1.col_transfer_right(*xs, transfer=fn) if form == "right" \
+            else fn(*xs)
+        w = _rc(torch.Generator(device=dev).manual_seed(5), dev, dtype,
+                *out.shape)
+        before = kb.col_transfer_backward.launches
+        grads.append(torch.autograd.grad(out, [x for x in xs
+                                               if x.requires_grad], w))
+        launched = kb.col_transfer_backward.launches - before
+        assert launched == (1 if fn is k1.col_transfer else 0)
+    for a, b in zip(*grads):
+        assert a.shape == b.shape
+        assert _rel(a, b) <= ALL_TOL[dtype]
 
 
 def test_graded_local_energy_on_the_card_matches_the_cpu(dev):
@@ -916,6 +980,27 @@ def _rc(gen, dev, dtype, *shape):
         x = torch.complex(x, torch.randn(*shape, generator=gen, device=dev,
                                          dtype=real))
     return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
+@pytest.mark.parametrize("lanes", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("chi", [8, 16, 37, 64])
+def test_bmps_overlap_shared_bottom_groups(dev, dtype, lanes, chi):
+    """K5 where one b slab serves a group of 1 to 5 lanes (batch stride 0),
+    chi from 8 to 64 (37: padded to 48; complex128 at 64 takes the simple
+    body), 3 groups, Lx = 3, D = 3, against the plain version; one launch."""
+    from peps_tpu_torch.kernels import bmps_overlap as k5
+    gen = torch.Generator(device=dev).manual_seed(chi * 10 + lanes)
+    a = _rc(gen, dev, dtype, 3, lanes, 3, chi, 3, chi)
+    b = _rc(gen, dev, dtype, 3, 1, 3, chi, 3, chi)
+    before = k5.bmps_overlap.launches
+    mant, logw = k5.bmps_overlap(a, b)
+    assert k5.bmps_overlap.launches == before + 1
+    rm, rl = k5.bmps_overlap_plain(a, b)
+    psi, ref = mant * torch.exp(logw - rl.max()), rm * torch.exp(rl - rl.max())
+    assert _rel(psi, ref) <= ALL_TOL[dtype]
+    assert (logw - rl).abs().max().item() <= 10 * ALL_TOL[dtype] * 3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,

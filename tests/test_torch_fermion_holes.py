@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from peps_tpu.fermion import vmc as j_vmc
 from peps_tpu.fermion.peps import FermionSpace as JSpace
@@ -41,3 +42,71 @@ def test_graded_holes_at_4x4_chi6_match_reference(cplx, monkeypatch):
         t(tps), t(cfgs), gm, chi, TruncParams(chi, 1, 1e-12, scheme="sketch"))
     for f in ("e_loc", "o_tensor", "log_abs_psi"):
         assert rel(getattr(out, f), getattr(ref, f)) < 1e-10, f
+
+
+def test_float32_graded_holes_on_rank_deficient_grams_as_near_as_reference(
+        monkeypatch):
+    """Both packages' float32 graded holes and local energies, each against
+    its own package's float64 ones, on a 3x3 t-J state whose sketch Grams
+    are rank deficient: the port's graded simple update at D=2 (20 steps,
+    tau 0.1), expanded to D=4 with noise 1e-3 (four seeds), chi=8, the
+    reference's sketch blocks, four configurations of the state's numbers
+    each. The float32 map (sketch jitter 1e-5) and round-off in the pinv's
+    near-null space move the holes by tens of percent from float64 in
+    either package (measured on the CPU: median relative error of O 0.33
+    in JAX, 0.38 in the port; of E_loc 0.21 and 0.17), so the float32
+    results of the two packages are not compared with each other. The
+    tolerance is statistical: over the 16 configurations the port's median
+    error is within twice the reference's, in O and in E_loc (a fault of
+    the port's float32 path would show as a systematic excess), and in
+    float64 the packages agree within 1e-4 (1e-5 is the rank-deficient
+    pinv's usual agreement)."""
+    from peps_tpu_torch.fermion import peps as tp
+    from peps_tpu_torch.peps import SimpleUpdateParams
+    monkeypatch.setattr(tb, "sketch_blocks", jax_sketch_blocks)
+    ly = lx = 3
+    m = fermion.tj_model(3.0, 1.0)
+    occ = np.array([[1, 2, 1], [2, 0, 2], [1, 2, 1]])
+    sp2 = tp.space_for_model(m, 2)
+    su = tp.fermion_simple_update(
+        tp.product_fermion_peps(ly, lx, sp2, occ, device="cpu"), m, sp2,
+        SimpleUpdateParams(20, 0.1, TruncParams(2, 1, 1e-12)))
+    sp4 = FermionSpace(sp2.phys_parity, 2, 2)
+    jsp4 = JSpace(sp2.phys_parity, 2, 2)
+    chi = 8
+    jfn = {dt: jax.jit(jax.vmap(
+        lambda x, c, g=j_vmc.GradedFermionModel.from_model(
+            j_fermion.tj_model(3.0, 1.0), jsp4, getattr(jnp, dt)):
+        j_vmc.local_energy_and_holes_graded(
+            x, c, g, chi, JTrunc(chi, 1, 1e-12, scheme="sketch")),
+        in_axes=(None, 0))) for dt in ("float64", "float32")}
+    errs = {"jax": [], "port": []}
+    for seed in range(1, 5):
+        tps = tp.expand_bond_dim_graded(
+            tp.to_tps_fermion(su.peps), sp2, sp4, 1e-3,
+            torch.Generator().manual_seed(seed)).numpy()
+        rng = np.random.default_rng(seed)
+        cfgs = np.stack([rng.permutation(occ.reshape(-1)).reshape(ly, lx)
+                         for _ in range(4)]).astype(np.int32)
+        res = {}
+        for dt in ("float64", "float32"):
+            x = tps.astype(dt)
+            jr = jfn[dt](jnp.asarray(x), jnp.asarray(cfgs))
+            gm = vmc.GradedFermionModel.from_model(
+                fermion.tj_model(3.0, 1.0), sp4, getattr(torch, dt), "cpu")
+            pr = vmc.local_energy_and_holes_graded(
+                t(x), t(cfgs), gm, chi,
+                TruncParams(chi, 1, 1e-12, scheme="sketch"))
+            res[dt] = {"jax": (np.asarray(jr.o_tensor).reshape(4, -1),
+                               np.asarray(jr.e_loc)),
+                       "port": (pr.o_tensor.numpy().reshape(4, -1),
+                                pr.e_loc.numpy())}
+        assert rel(res["float64"]["port"][0], res["float64"]["jax"][0]) \
+            < 1e-4
+        for pkg in ("jax", "port"):
+            (o32, e32), (o64, e64) = res["float32"][pkg], res["float64"][pkg]
+            for i in range(4):
+                errs[pkg].append((rel(o32[i], o64[i]),
+                                  abs(e32[i] - e64[i]) / abs(e64[i])))
+    med = {k: np.median(np.array(v), axis=0) for k, v in errs.items()}
+    assert np.all(med["port"] <= 2 * med["jax"]), med

@@ -99,7 +99,9 @@ def test_col_transfer_function_gradcheck(dtype):
     """ColTransferFunction with the plain transfer: gradcheck (fast mode:
     the vector-Jacobian products along random directions), operands
     broadcast over the batch as in the sketch scans (a shared site, a
-    size-1 batch dim); its backward counts no kernel launch."""
+    size-1 batch dim); on CPU tensors its backward is the plain chain and
+    launches no kernel."""
+    from peps_tpu_torch.kernels import col_transfer_backward as kb
     gen = torch.Generator().manual_seed(1)
 
     def r(*shape):
@@ -107,37 +109,41 @@ def test_col_transfer_function_gradcheck(dtype):
             .to(dtype).requires_grad_(True)
 
     ops = (r(2, 3, 4, 3, 2), r(3, 4, 2, 5), r(2, 3, 2, 4), r(1, 3, 2, 2, 6))
-    before = k1.col_transfer.backward_launches
+    before = (kb.col_transfer_backward.launches, k1.col_transfer.launches)
     assert torch.autograd.gradcheck(
         lambda *x: k1.ColTransferFunction.apply(*x, k1.col_transfer_plain),
         ops, fast_mode=True)
-    # the backward counts kernel launches only, and the plain transfer
-    # launches none
-    assert k1.col_transfer.backward_launches == before
+    # the backward counts kernel launches only, and the CPU launches none
+    assert (kb.col_transfer_backward.launches,
+            k1.col_transfer.launches) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
                                    torch.complex64, torch.complex128])
 def test_backward_forms_fit_the_launch_plan(dtype):
-    """Every backward transfer of the graded holes fits K1's launch plan at
-    the flagship's shapes (6x6, D=8, chi=32, eval chunk 8): the sketch V and
-    W scans (the blocks in the bot slot, no gradient there) and the pair
-    traces' transfer."""
+    """Every backward of the graded holes fits the backward kernel's launch
+    plan at the flagship's shapes (6x6, D=8, chi=32, eval chunk 8): the
+    sketch V and W scans (the blocks in the bot slot, broadcast, no
+    gradient there: one item a group) and the pair traces (env, top and
+    bot broadcast over the 3 candidates: groups of 3 items); each fits a
+    CTA's shared memory, fills half the card with clusters of 8 CTAs at
+    8 items and the card with one CTA a group at 240 groups, and sizes
+    its scratch for the clusters it launches."""
+    from peps_tpu_torch.kernels import col_transfer_backward as kb
     chi, D, losk, nc, lx = 32, 8, 40, 8, 6
     forms = {"sketch_v": ((chi, D, chi), (chi, D, chi), (D, D, D, D),
-                          (chi, D, chi)),
+                          (chi, D, chi), (1, 1), (True, True, True, False)),
              "sketch_w": ((chi, D, losk), (chi, D, chi), (D, D, D, D),
-                          (losk, D, losk)),
+                          (losk, D, losk), (1, 1), (True, True, True, False)),
              "pair_traces": ((chi, D, chi), (chi, D, chi), (D, D, D, D),
-                             (chi, D, chi))}
-    for name, shapes in forms.items():
+                             (chi, D, chi), (3, lx * (lx - 1)), (True,) * 4)}
+    for name, (*shapes, (g_items, per), needs) in forms.items():
         env, top, site, bot = (torch.empty(s, device="meta", dtype=dtype)
                                for s in shapes)
-        g = torch.empty(top.shape[-1], site.shape[-1], bot.shape[-1],
-                        device="meta", dtype=dtype)
-        views = k1.col_transfer_backward_views(g, env, top, site, bot)
-        for form, ops in views.items():
-            for items in (nc, nc * (lx - 2), nc * lx * 3):
-                plan = k1.col_transfer_launch_plan(k1.k1_dims(*ops), dtype,
-                                                   items)
-                assert plan["ctas"] >= 1, (name, form)
+        dims = k1.k1_dims(env, top, site, bot)
+        plan = kb.backward_plan(dims, dtype, needs, g_items, nc * per)
+        assert plan["smem_bytes"] <= k1.SMEM_PER_BLOCK, name
+        assert plan["cluster"] == (8 if nc * per == nc else 1), name
+        assert plan["ctas"] <= 2 * kb.H100_SMS, name
+        assert plan["scratch"] == plan["clusters"] * g_items \
+            * plan["item_sz"], name
