@@ -2619,8 +2619,10 @@ def graded_breakdown(res, gm, vp, device):
             c0 = fermion_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
+            # a named range for scripts/profile_graded_holes.py's trace
+            with torch.profiler.record_function(name):
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
             incl[name] = incl.get(name, 0.0) + time.perf_counter() - t0
             c1 = fermion_counts()
             counts[name] = {k: counts.get(name, {}).get(k, 0) + c1[k] - c0[k]

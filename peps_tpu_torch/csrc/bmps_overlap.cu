@@ -25,7 +25,8 @@
 // B_v is staged once per v for all the CTA's lanes; each lane's A_v
 // follows. Both arrive by cp.async into two buffers, so the next (v, lane)
 // stage lands while this one is multiplied (one buffer where two do not
-// fit); T alternates between two buffers, so a stage takes two barriers. The products: f32 and complex64 a TS x TS register tile a thread
+// fit); T alternates between two buffers, so a stage takes two barriers.
+// The products: f32 and complex64 a TS x TS register tile a thread
 // (TS = chi_p / 16, chi padded to chi_p, a multiple of 16, with zeros),
 // fed from shared memory; f64 and complex128 mma.sync.m16n8k8.f64 tiles of
 // 16 x 8 dealt over the warps (complex128: four real MMAs a complex tile
@@ -34,10 +35,10 @@
 // a CTA, buffers, shared bytes) is chosen in Python
 // (kernels/bmps_overlap.py:overlap_plan).
 //
-// The simple body (PR 15's; the plan takes it only where the staged body's
-// buffers do not fit a CTA, complex128 at chi > 48): one CTA an item, m and
-// one T_v in shared memory, operands read from global memory in the
-// product loops.
+// The simple body (the kernel's first body; the plan takes it only where
+// the staged body's buffers do not fit a CTA, complex128 at chi > 48): one
+// CTA an item, m and one T_v in shared memory, operands read from global
+// memory in the product loops.
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -80,7 +80,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBatch = 4;
-constexpr int kMaxCluster = 16;
+constexpr int kMaxCluster = 8;   // the largest portable cluster
 // tensors: the four operands, g, the scratch intermediates, the gradients
 enum { kEnv, kTop, kSite, kBot, kG, kX, kP, kR, kF, kGEnv, kGTop, kGSite,
        kGBot, kNumTensors };
@@ -982,17 +982,13 @@ int launch(const T* const* in, T* const* grad, T* scratch,
   for (int i = 0; i < 4; ++i)
     if (m.needs[i] && grad[i] == nullptr) return cudaErrorInvalidValue;
   cudaError_t e;
-  // the kernel's attributes, set on its first launch: a CTA may take up to
-  // 227 KB of shared memory, and clusters of up to 16 CTAs
+  // the kernel's attribute, set on its first launch: a CTA may take up to
+  // 227 KB of shared memory
   static bool configured = false;
   if (!configured) {
     e = cudaFuncSetAttribute(backward_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              232448);
-    if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(backward_kernel<T>,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
     if (e != cudaSuccess) return e;
     configured = true;
   }

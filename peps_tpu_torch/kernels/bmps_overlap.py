@@ -89,28 +89,29 @@ def staged_smem(dtype, chi_p, lanes, nbuf):
 def overlap_plan(dtype, chi, lane_items, groups, sms=H100_SMS):
     """The launch plan of ``groups`` groups of ``lane_items`` items that
     share a b slab (the lanes), chi padded to chi_p (a multiple of 16).
-    The staged body with two buffers where they fit, else one; the lanes a
-    CTA minimize the waves of CTAs (as many resident an SM as the shared
-    memory holds) times the lanes each runs (plus half a lane for staging
-    b), the larger count on a tie: sharing b saves reads of it, more CTAs
-    an SM hide the stages' barriers. Where no staged CTA fits (complex128
-    at chi > 48), the simple body: one CTA an item."""
+    The staged body with two buffers where they fit, else one. Lanes a
+    CTA: the fewest that keep two lanes in flight an SM, counting the CTAs
+    an SM's shared memory holds. A stage is two barriers around a short
+    product: a second lane in flight (a second CTA, or a second lane of
+    one CTA) hides them, and past that the lanes of a CTA only run one
+    after another. So one lane a CTA wherever two CTAs fit an SM, two
+    where one CTA fills it (complex128 at chi_p = 32; float64 and
+    complex64 at 48, float32 at 64), the b slab then staged once for
+    both; where two lanes do not fit either, one. Where no staged CTA
+    fits (complex128 at chi > 48), the simple body: one CTA an item."""
     chi_p = -(-chi // 16) * 16
-    best = None
     for nbuf in (2, 1):
         for lanes in range(1, min(lane_items, MAX_LANES) + 1):
             smem = staged_smem(dtype, chi_p, lanes, nbuf)
             if smem > SMEM_PER_BLOCK:
                 break
-            ctas = groups * -(-lane_items // lanes)
             resident = max(1, min(8, SMEM_PER_SM // (smem + 1024)))
-            cost = -(-ctas // (sms * resident)) * (lanes + 0.5)
-            if best is None or cost <= best[0]:
-                best = (cost, lanes, smem)
-        if best is not None:
-            return {"body": "staged", "lanes": best[1], "nbuf": nbuf,
-                    "chi_p": chi_p, "smem_bytes": best[2],
-                    "ctas": groups * -(-lane_items // best[1])}
+            last = lanes == min(lane_items, MAX_LANES) or staged_smem(
+                dtype, chi_p, lanes + 1, nbuf) > SMEM_PER_BLOCK
+            if lanes * resident >= 2 or last:
+                return {"body": "staged", "lanes": lanes, "nbuf": nbuf,
+                        "chi_p": chi_p, "smem_bytes": smem,
+                        "ctas": groups * -(-lane_items // lanes)}
     return {"body": "simple", "lanes": 1, "nbuf": 0, "chi_p": chi,
             "smem_bytes": 0, "ctas": groups * lane_items}
 

@@ -457,90 +457,30 @@ def col_transfer(env, top, site, bot):
                            f"{env.device}")
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (env, top, site, bot)):
-        return ColTransferFunction.apply(env, top, site, bot, _launch)
+        return ColTransferFunction.apply(env, top, site, bot)
     return _launch(env, top, site, bot)
 
 
-# ---------------------------------------------------------------------------
-# backward: the plain chain (three transfers on permuted views and a grouped
-# einsum); on the card ColTransferFunction launches csrc/col_transfer_backward
-# ---------------------------------------------------------------------------
-
-def _conj(x):
-    return torch.conj_physical(x) if x.is_complex() else x
-
-
-def _reduce_to(grad, shape):
-    """Sum grad over the batch dims that broadcast onto ``shape``."""
-    lead = grad.dim() - len(shape)
-    if lead > 0:
-        grad = grad.sum(dim=tuple(range(lead)))
-    dims = tuple(i for i, n in enumerate(shape)
-                 if n == 1 and grad.shape[i] != 1)
-    if dims:
-        grad = grad.sum(dim=dims, keepdim=True)
-    return grad
-
-
-def col_transfer_backward_views(g, env, top, site, bot):
-    """The left-form operands of the three transfer-shaped gradients of
-    out[A, r, C] = sum env[a,l,c] top[a,u,A] site[u,l,d,r] bot[c,d,C]
-    (before conjugation): {"env": right transfer of g through (top, site,
-    bot) as left-form views, "top": env' = bot, top' = env as (c,l,a),
-    site' = site as (l,d,r,u), bot' = g as (C,r,A), "bot": the mirror,
-    env' = top, top' = env, site' = site as (l,u,r,d), bot' = g}."""
-    return {"env": (g, top.transpose(-3, -1), site.transpose(-3, -1),
-                    bot.transpose(-3, -1)),
-            "top": (bot, env.transpose(-3, -1), site.movedim(-4, -1),
-                    g.transpose(-3, -1)),
-            "bot": (top, env, site.permute(*range(site.dim() - 4),
-                                           -3, -4, -1, -2), g)}
-
-
-def col_transfer_backward(g, env, top, site, bot, needs, transfer):
-    """Gradients (torch's convention: grad_out times the conjugate of the
-    other operands) of the left transfer with respect to (env, top, site,
-    bot), each reduced to its operand's shape; None where ``needs`` is
-    False. The env, top and bot gradients are one ``transfer`` each (with
-    :func:`col_transfer_plain`, the plain version of K1's backward kernel;
-    ``kernels/col_transfer_backward.py``), on conj(g) with the result
-    conjugated; the site gradient is the hole form (env.top)(bot.g)
-    grouped as ``bmps.punch_holes_row``."""
-    gc = _conj(g)
-    views = col_transfer_backward_views(gc, env, top, site, bot)
-    out = []
-    for name, op in (("env", env), ("top", top)):
-        out.append(_reduce_to(_conj(transfer(*views[name])), op.shape)
-                   if needs[("env", "top").index(name)] else None)
-    grad_site = None
-    if needs[2]:
-        lt = torch.einsum("...alc,...auA->...lcuA", env, top)
-        br = torch.einsum("...cdC,...ArC->...cdAr", bot, gc)
-        grad_site = _reduce_to(_conj(torch.einsum(
-            "...lcuA,...cdAr->...uldr", lt, br)), site.shape)
-    grad_bot = _reduce_to(_conj(transfer(*views["bot"])), bot.shape) \
-        if needs[3] else None
-    return out[0], out[1], grad_site, grad_bot
-
-
 class ColTransferFunction(torch.autograd.Function):
-    """K1 under autograd: forward = ``transfer`` (the kernel launch on the
-    card), backward = ``kernels.col_transfer_backward.col_transfer_backward``
-    (one launch of K1's backward kernel on CUDA tensors, the plain chain on
-    CPU tensors), computing only the gradients autograd asks for."""
+    """K1 under autograd: forward = the kernel launch on CUDA tensors, the
+    plain version on CPU tensors; backward =
+    ``kernels.col_transfer_backward.col_transfer_backward`` (one launch of
+    K1's backward kernel on CUDA tensors, the plain chain on CPU tensors),
+    computing only the gradients autograd asks for."""
 
     @staticmethod
-    def forward(ctx, env, top, site, bot, transfer):
+    def forward(ctx, env, top, site, bot):
         ctx.save_for_backward(env, top, site, bot)
-        return transfer(env, top, site, bot)
+        if env.device.type == "cpu":
+            return col_transfer_plain(env, top, site, bot)
+        return _launch(env, top, site, bot)
 
     @staticmethod
     def backward(ctx, g):
         from peps_tpu_torch.kernels.col_transfer_backward import \
             col_transfer_backward as backward
         env, top, site, bot = ctx.saved_tensors
-        grads = backward(g, env, top, site, bot, ctx.needs_input_grad[:4])
-        return (*grads, None)
+        return backward(g, env, top, site, bot, ctx.needs_input_grad)
 
 
 def col_transfer_plan(env, top, site, bot):

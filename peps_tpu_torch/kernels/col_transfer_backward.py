@@ -12,9 +12,8 @@ shape; None elsewhere. It is what ``jax.grad`` computes through
 graded holes (``peps_tpu/fermion/vmc.py:301-306``).
 
 On CPU tensors it runs the plain version
-(:func:`peps_tpu_torch.kernels.col_transfer.col_transfer_backward` on
-:func:`~peps_tpu_torch.kernels.col_transfer.col_transfer_plain`: three
-plain transfers on permuted views and a grouped einsum). On CUDA tensors it
+(:func:`col_transfer_backward_plain`: three plain transfers on permuted
+views and a grouped einsum). On CUDA tensors it
 launches the hand-written kernel (``csrc/col_transfer_backward.cu``: one
 launch per call, every requested gradient, thread-block clusters over the
 groups of items that share a broadcast operand) or raises; there is no
@@ -40,7 +39,7 @@ H100_SMS = 132
 TILE_VALUES = 4096         # an output tile: 64 x 64, or 32 x 128
 MAX_TN = 128
 TAB_LEN = 128 + 2 * MAX_TN  # the tile's offset tables (csrc kTabLen)
-MAX_CLUSTER = 8            # the largest portable cluster (16 measured slower)
+MAX_CLUSTER = 8            # the largest portable cluster
 CTAS_PER_SM = 2            # the CTAs a launch keeps resident an SM
 # (K chunk, row padding, stages of the cp.async ring) per dtype (csrc Tr)
 CHUNK = {torch.float32: (16, 4, 4), torch.float64: (16, 4, 3),
@@ -53,11 +52,49 @@ TENSORS = ("env", "top", "site", "bot", "g", "genv", "gtop", "gsite", "gbot")
 META_LEN = 4 + 4 * len(TENSORS) + 16 + 8 + 4 + 4 + 11
 
 
+def _conj(x):
+    return torch.conj_physical(x) if x.is_complex() else x
+
+
+def _reduce_to(grad, shape):
+    """Sum grad over the batch dims that broadcast onto ``shape``."""
+    lead = grad.dim() - len(shape)
+    if lead > 0:
+        grad = grad.sum(dim=tuple(range(lead)))
+    dims = tuple(i for i, n in enumerate(shape)
+                 if n == 1 and grad.shape[i] != 1)
+    if dims:
+        grad = grad.sum(dim=dims, keepdim=True)
+    return grad
+
+
 def col_transfer_backward_plain(g, env, top, site, bot, needs):
-    """The plain PyTorch version: the env, top and bot gradients as plain
-    transfers on permuted views, the site gradient one grouped einsum."""
-    return k1.col_transfer_backward(g, env, top, site, bot, needs,
-                                    k1.col_transfer_plain)
+    """The plain PyTorch version: the env, top and bot gradients are one
+    plain transfer each (``col_transfer.col_transfer_plain``) on permuted
+    views of conj(g) and the other operands, conjugated; the site gradient
+    is the hole form (env.top)(bot.g), grouped as
+    ``bmps.punch_holes_row``; each is reduced to its operand's shape."""
+    gc = _conj(g)
+    views = {"env": (gc, top.transpose(-3, -1), site.transpose(-3, -1),
+                     bot.transpose(-3, -1)),
+             "top": (bot, env.transpose(-3, -1), site.movedim(-4, -1),
+                     gc.transpose(-3, -1)),
+             "bot": (top, env, site.permute(*range(site.dim() - 4),
+                                            -3, -4, -1, -2), gc)}
+    out = [None] * 4
+    for i, (name, op) in enumerate((("env", env), ("top", top))):
+        if needs[i]:
+            out[i] = _reduce_to(_conj(k1.col_transfer_plain(*views[name])),
+                                op.shape)
+    if needs[2]:
+        lt = torch.einsum("...alc,...auA->...lcuA", env, top)
+        br = torch.einsum("...cdC,...ArC->...cdAr", bot, gc)
+        out[2] = _reduce_to(_conj(torch.einsum(
+            "...lcuA,...cdAr->...uldr", lt, br)), site.shape)
+    if needs[3]:
+        out[3] = _reduce_to(_conj(k1.col_transfer_plain(*views["bot"])),
+                            bot.shape)
+    return tuple(out)
 
 
 def entry_name(dtype) -> str:
@@ -128,8 +165,8 @@ def backward_plan(dims, dtype, needs, group_items, groups, sms=H100_SMS,
         cluster = 1
         while cluster < MAX_CLUSTER and groups * cluster < sms:
             cluster *= 2
-    if not 1 <= cluster <= 16:
-        raise ValueError(f"cluster size {cluster} not in 1..16")
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"cluster size {cluster} not in 1..{MAX_CLUSTER}")
     clusters = max(1, min(groups, CTAS_PER_SM * sms // cluster))
     offs, item = scratch_layout(dims, needs)
     return {"dims": dims, "dtype": dtype,
@@ -144,12 +181,12 @@ _META_CACHE: dict = {}
 _META_CACHE_MAX = 4096
 
 
-def launch_meta(g, env, top, site, bot, needs, sms=H100_SMS, cluster=None):
+def launch_meta(g, env, top, site, bot, needs, sms=H100_SMS):
     """(plan, ctypes meta) of a kernel call, cached per (shapes, strides,
     dtype, device, needs) signature."""
     ops = (env, top, site, bot, g)
     key = (tuple((o.shape, o.stride(), o.dtype, o.device) for o in ops),
-           tuple(bool(n) for n in needs), sms, cluster)
+           tuple(bool(n) for n in needs), sms)
     hit = _META_CACHE.get(key)
     if hit is not None:
         return hit
@@ -190,14 +227,19 @@ def launch_meta(g, env, top, site, bot, needs, sms=H100_SMS, cluster=None):
     group = [int(any(need and strides[5 + i][d] == 0
                      for i, need in enumerate(needs)) and shape[d] > 1)
              for d in range(MAX_BATCH)]
-    # env and top broadcast over the same group dims: P and R one per run
+    # env and top broadcast over the same group dims: P one per run. R is
+    # then summed over the run, so every requested env or top gradient
+    # must be reduced over that run too: an expanded env or top (stride 0
+    # at a size > 1) has a gradient per item there, and shares nothing.
+    bcast = [[s[d] == 0 for d in range(MAX_BATCH)] for s in strides]
     share = int(any(group) and all(
-        (strides[0][d] == 0) == (strides[1][d] == 0)
+        bcast[0][d] == bcast[1][d]
+        and not (needs[0] and bcast[5][d] != bcast[0][d])
+        and not (needs[1] and bcast[6][d] != bcast[1][d])
         for d in range(MAX_BATCH) if group[d]))
     group_items = math.prod(n for n, f in zip(shape, group) if f)
     groups = math.prod(n for n, f in zip(shape, group) if not f)
-    plan = backward_plan(dims, env.dtype, needs, group_items, groups, sms,
-                         cluster=cluster)
+    plan = backward_plan(dims, env.dtype, needs, group_items, groups, sms)
     meta = list(shape)
     for s in strides:
         meta += s

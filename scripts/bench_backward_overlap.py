@@ -4,7 +4,7 @@ commit's versions, in turns.
     python scripts/bench_backward_overlap.py [--other-k1-py PATH]
         [--other-k5-src PATH] [--other-k5-py PATH] [--label NAME]
         [--reps 10] [--dtypes float32,...] [--lanes 1,2,3,5]
-        [--clusters 1,4,8,16] [--skip backward|overlap] [--ablate]
+        [--clusters 1,2,4,8] [--skip backward|overlap] [--rounds 1]
 
 K1's backward at chip_smoke.k1_backward_cases (the graded holes' sketch V
 and W scans and the pair traces, 6x6, D=8, chi=32, a chunk of 8 chains) in
@@ -18,8 +18,9 @@ ColTransferFunction launches K1 on permuted views for three gradients and
 runs the site gradient as einsums) and with the plain chain's backward;
 one JSON line a case with each ms, the bound, the kernel's launch plan and
 the kernel alone (one launch between CUDA events) at the plan's cluster
-size and at each --clusters size; with --ablate, the kernel alone for each
-requested gradient by itself (the products of its chain only).
+size and at each --clusters size (at most 8). --rounds repeats the K1
+backward cases, each line tagged with its round, so that a case timed
+first in the process can be told from a warm one.
 
 K5 at chip_smoke.k5_phase's per-k shape (960 closures, Lx=6, chi=32, D=8,
 b broadcast over the 5 start lanes) in the same dtypes: this checkout's
@@ -97,7 +98,7 @@ def k5_call(lib, meta_of, a, b):
     return mant, logw
 
 
-def bench_backward(args, peak, gen, other):
+def bench_backward(args, peak, gen, other, rnd):
     import torch
     import chip_smoke as cs
     from peps_tpu_torch.kernels import col_transfer as k1
@@ -112,8 +113,7 @@ def bench_backward(args, peak, gen, other):
                     else k1.col_transfer_plain(*ops)).shape
             w = torch.randn(shape, generator=gen, device=args.device,
                             dtype=torch.float64).to(dtype)
-            paths = {"this": lambda *x: k1.ColTransferFunction.apply(
-                         *x, k1._launch),
+            paths = {"this": k1.ColTransferFunction.apply,
                      "plain": k1.col_transfer_plain}
             if other is not None:
                 paths[args.label] = lambda *x: other.ColTransferFunction.apply(
@@ -168,20 +168,9 @@ def bench_backward(args, peak, gen, other):
                 finally:
                     kb.backward_plan = plan_fn
                     kb._META_CACHE.clear()
-            # the kernel alone for each single requested gradient (its
-            # chain's products only), at the plan's cluster size
-            by_need = {}
-            if args.ablate:
-                for i, label in enumerate(("env", "top", "site", "bot")):
-                    if needs[i]:
-                        one = tuple(j == i for j in range(4))
-                        by_need[label] = cs.time_ms(
-                            lambda one=one: kb._launch(w, *views, one),
-                            args.reps)
             print(json.dumps({
-                "phase": "backward", "case": name, "dtype": dt,
+                "phase": "backward", "round": rnd, "case": name, "dtype": dt,
                 "kernel_ms_by_cluster": kernel,
-                "kernel_ms_by_gradient": by_need,
                 "rel_err": rels, "ms": t,
                 "bound_ms": max(flop_s, byte_s) * 1e3,
                 "bound_by": "operations" if flop_s >= byte_s else "bytes",
@@ -279,8 +268,7 @@ def main():
                     help="cluster sizes at which to time the backward "
                          "kernel alone, besides the plan's")
     ap.add_argument("--skip", default="")
-    ap.add_argument("--ablate", action="store_true",
-                    help="time the backward kernel for each gradient alone")
+    ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args()
     args.dtypes = args.dtypes.split(",")
     args.lanes = [int(x) for x in args.lanes.split(",") if x]
@@ -303,7 +291,8 @@ def main():
     if "backward" not in args.skip:
         other = load_module(args.other_k1_py, "other_col_transfer") \
             if args.other_k1_py else None
-        bench_backward(args, peak, gen, other)
+        for rnd in range(args.rounds):
+            bench_backward(args, peak, gen, other, rnd)
     if "overlap" not in args.skip:
         other_lib = build_other_k5(args.other_k5_src) \
             if args.other_k5_src else None

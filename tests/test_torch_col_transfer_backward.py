@@ -88,7 +88,7 @@ def test_plain_backward_matches_jax_vjp(dtype, form, needs):
           for x, n in zip((env, top, site, bot), needs)]
 
     def transfer(*ops):
-        return k1.ColTransferFunction.apply(*ops, k1.col_transfer_plain)
+        return k1.ColTransferFunction.apply(*ops)
 
     before = (kb.col_transfer_backward.launches, k1.col_transfer.launches)
     out = transfer(*xs) if form == "left" else \
@@ -113,8 +113,7 @@ def test_backward_wrapper_on_the_cpu_is_the_plain_chain():
     needs = (True, False, True, True)
     before = kb.col_transfer_backward.launches
     got = kb.col_transfer_backward(g, env, top, site, bot, needs)
-    ref = k1.col_transfer_backward(g, env, top, site, bot, needs,
-                                   k1.col_transfer_plain)
+    ref = kb.col_transfer_backward_plain(g, env, top, site, bot, needs)
     assert kb.col_transfer_backward.launches == before
     assert got[1] is None
     for a, b in zip(got, ref):
@@ -123,14 +122,17 @@ def test_backward_wrapper_on_the_cpu_is_the_plain_chain():
 
 # ------------------------------------------------------------- the plans
 
-def _meta(shapes, needs, dtype=torch.float32, cluster=None):
+def _meta(shapes, needs, dtype=torch.float32, expand=None):
+    """The plan and meta of operands of ``shapes``; ``expand``: the batch
+    shape to which env and top are expanded (stride-0 views)."""
     env, top, site, bot = (torch.empty(s, dtype=dtype) for s in shapes)
+    if expand is not None:
+        env, top = (t.expand(*expand, *t.shape[-3:]) for t in (env, top))
     batch = torch.broadcast_shapes(env.shape[:-3], top.shape[:-3],
                                    site.shape[:-4], bot.shape[:-3])
     g = torch.empty(*batch, top.shape[-1], site.shape[-1], bot.shape[-1],
                     dtype=dtype)
-    plan, meta = kb.launch_meta(g, env, top, site, bot, needs,
-                                cluster=cluster)
+    plan, meta = kb.launch_meta(g, env, top, site, bot, needs)
     return plan, list(meta)
 
 
@@ -172,16 +174,19 @@ def test_backward_plan_groups_and_scratch(dtype):
     assert plan["scratch_offsets"][2:] == [0, 0]
 
 
-def test_backward_meta_layout_and_merged_batch():
+def test_backward_meta_layout_and_merged_batch(monkeypatch):
     """The meta: merged batch sizes first (a size-1 dim dropped, padded to
     four), then nine tensors' batch strides (a gradient's 0 where its
     operand is broadcast), the inner strides, the sizes, the needs, the
     group flags and the plan (the last: whether env and top share their
-    broadcast), META_LEN values in all; a cluster override rides in the
-    plan."""
+    broadcast), META_LEN values in all; the plan's cluster size rides in
+    the meta."""
+    plan_fn = kb.backward_plan
+    monkeypatch.setattr(kb, "backward_plan", lambda *a, **k: plan_fn(
+        *a, **{**k, "cluster": 2}))
+    monkeypatch.setattr(kb, "_META_CACHE", {})
     plan, meta = _meta(((1, 3, 7, 3, 9), (4, 3, 7, 2, 6), (4, 1, 2, 3, 5, 3),
-                        (4, 3, 9, 5, 11)), (True, False, True, True),
-                       cluster=2)
+                        (4, 3, 9, 5, 11)), (True, False, True, True))
     assert len(meta) == kb.META_LEN
     assert meta[:4] == [1, 1, 4, 3]
     strides = [meta[4 + 4 * i:8 + 4 * i] for i in range(9)]
@@ -197,6 +202,32 @@ def test_backward_meta_layout_and_merged_batch():
     assert meta[-1] == 0 and not plan["share"]   # env and top differ
 
 
+@pytest.mark.parametrize("needs", [(True, True, True, True),
+                                   (True, False, False, True),
+                                   (False, True, False, True),
+                                   (False, False, True, True)],
+                         ids=["etsb", "eb", "tb", "sb"])
+def test_backward_share_only_where_the_gradients_share_the_run(needs):
+    """P and R are one per run of env's broadcast (the plan's share) only
+    where env and top are broadcast over the same group dims and every
+    requested env or top gradient is reduced over them too. env and top
+    expanded (stride 0, size 3) over a dim on which bot (size 1) needs its
+    gradient: that dim is a group dim, but the env and top gradients are
+    per item there, so R must not be summed over it; where neither is
+    asked for, P alone is shared. Sizes are the pair traces' (8 x 3
+    items)."""
+    shapes = ((8, 1, 3, 2, 4), (8, 1, 3, 2, 5), (8, 3, 2, 2, 3, 2),
+              (8, 1, 4, 3, 3))
+    plan, meta = _meta(shapes, needs, expand=(8, 3))
+    assert meta[kb.META_LEN - 15:kb.META_LEN - 11] == [0, 0, 0, 1]
+    assert (plan["group_items"], plan["groups"]) == (3, 8)
+    assert plan["share"] == (not (needs[0] or needs[1])) and \
+        meta[-1] == int(plan["share"])
+    # the same operands not expanded (size 1): the gradients share the run
+    plan, meta = _meta(shapes, needs)
+    assert plan["share"] and meta[-1] == 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
                                    torch.complex64, torch.complex128])
 @pytest.mark.parametrize("chi", [8, 16, 32, 37, 48, 64])
@@ -205,8 +236,12 @@ def test_overlap_plan_fits_and_shares_the_bottom(dtype, chi):
     a b slab, 192 groups): the staged body wherever its buffers fit a CTA
     (all but complex128 at chi = 64), lanes a CTA between 1 and the
     group's 5, its shared bytes as the kernel counts them; chi padded to
-    a multiple of 16."""
+    a multiple of 16; at the main path's chi = 32 one lane a CTA, two in
+    complex128, where one CTA fills an SM (the lanes that timed fastest
+    on the H100)."""
     plan = k5.overlap_plan(dtype, chi, 5, 192)
+    if chi == 32:
+        assert plan["lanes"] == (2 if dtype == torch.complex128 else 1)
     if dtype == torch.complex128 and chi > 48:
         assert plan["body"] == "simple"
         return

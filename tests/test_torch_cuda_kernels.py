@@ -880,8 +880,11 @@ def _backward_case(name, dtype, gen, dev):
     """(form, operands, needs) of a K1 backward card case: the graded
     holes' sketch V (right form, the block in the bot slot) and W scans and
     the pair traces (env, top and bot broadcast over a candidate dim) at
-    6x6, D=8, chi=32, a chunk of 8 chains; a small case with every
-    operand broadcast somewhere and two batch dims."""
+    6x6, D=8, chi=32, a chunk of 8 chains; the pair traces with env and
+    top expanded over the candidates (stride 0, size 3: a gradient per
+    candidate, summed by autograd) while bot (size 1) needs its gradient
+    over them; a small case with every operand broadcast somewhere and two
+    batch dims."""
     def r(*shape):
         return _rc(gen, dev, dtype, *shape)
 
@@ -893,7 +896,7 @@ def _backward_case(name, dtype, gen, dev):
     if name == "sketch_w":
         return "left", (r(8, chi, D, losk), r(8, chi, D, chi), r(8, *site),
                         r(losk, D, losk)), (True, True, True, False)
-    if name == "pair_traces":
+    if name in ("pair_traces", "expanded"):
         return "left", (r(8, 6, 5, 1, chi, D, chi), r(8, 6, 5, 1, chi, D, chi),
                         r(8, 6, 5, 3, *site), r(8, 6, 5, 1, chi, D, chi)), \
             (True, True, True, True)
@@ -904,14 +907,15 @@ def _backward_case(name, dtype, gen, dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
                                    torch.complex64, torch.complex128])
 @pytest.mark.parametrize("case", ["sketch_v", "sketch_w", "pair_traces",
-                                  "mixed"])
+                                  "expanded", "mixed"])
 @pytest.mark.parametrize("cluster", [None, 1, 8])
 def test_col_transfer_backward_kernel_cases(dev, dtype, case, cluster,
                                             monkeypatch):
     """K1's backward kernel against autograd of col_transfer_plain at the
-    graded holes' shapes and a mixed broadcast, at the plan's cluster size
-    and at 1 and 8 CTAs a cluster: every requested gradient within 1e-5
-    (f32, complex64) / 1e-12 (f64, complex128) of max |plain|, one launch."""
+    graded holes' shapes, an expanded env and top, and a mixed broadcast,
+    at the plan's cluster size and at 1 and 8 CTAs a cluster: every
+    requested gradient within 1e-5 (f32, complex64) / 1e-12 (f64,
+    complex128) of max |plain|, one launch."""
     from peps_tpu_torch.kernels import col_transfer_backward as kb
     if cluster is not None:
         plan = kb.backward_plan
@@ -923,8 +927,11 @@ def test_col_transfer_backward_kernel_cases(dev, dtype, case, cluster,
     grads = []
     for fn in (k1.col_transfer, k1.col_transfer_plain):
         xs = [o.detach().clone().requires_grad_(n) for o, n in zip(ops, needs)]
-        out = k1.col_transfer_right(*xs, transfer=fn) if form == "right" \
-            else fn(*xs)
+        args = [x.expand(*x.shape[:-4], 3, *x.shape[-3:])
+                if case == "expanded" and i < 2 else x
+                for i, x in enumerate(xs)]
+        out = k1.col_transfer_right(*args, transfer=fn) if form == "right" \
+            else fn(*args)
         w = _rc(torch.Generator(device=dev).manual_seed(5), dev, dtype,
                 *out.shape)
         before = kb.col_transfer_backward.launches

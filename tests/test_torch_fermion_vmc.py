@@ -111,7 +111,7 @@ def test_col_transfer_function_gradcheck(dtype):
     ops = (r(2, 3, 4, 3, 2), r(3, 4, 2, 5), r(2, 3, 2, 4), r(1, 3, 2, 2, 6))
     before = (kb.col_transfer_backward.launches, k1.col_transfer.launches)
     assert torch.autograd.gradcheck(
-        lambda *x: k1.ColTransferFunction.apply(*x, k1.col_transfer_plain),
+        lambda *x: k1.ColTransferFunction.apply(*x),
         ops, fast_mode=True)
     # the backward counts kernel launches only, and the CPU launches none
     assert (kb.col_transfer_backward.launches,
