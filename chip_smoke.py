@@ -180,6 +180,27 @@ Each phase ends with a phase_end line holding its wall seconds.
      chi=6, and exact_sum_pair_corr_graded on a seeded 2x4 ladder; (d) a
      Jordan-Wigner t-J measure() with the pair correlators (2x4, D=4) and
      one of phase 10 (a)'s Hubbard state: finite, N_up and N_dn kept.
+ 12. pbc (the torus, pbc lines): (a) examples/heisenberg_pbc_vmc.py's
+     width: the 4x4 Heisenberg torus SU from the Neel state at D=3, tau
+     0.2 then 0.05, 40 + 40 steps (the example runs 120 + 120), seconds
+     per step, its estimate per site below the Neel state's -0.5 (32
+     bonds at -1/4 on 16 sites); to_tps_pbc in float32; (b) the torus
+     local energy and holes (one autograd pass for the holes, the bond
+     recomputes of every chain, bond and candidate pair in one batched
+     contraction) of 8 and 32 Sz = 0 configurations from
+     init_configs_occupancy at chi=12 under the fast scheme (one power
+     iteration) and the svd scheme: seconds per evaluation, the mean
+     E_loc (a number only: the configurations are not drawn from
+     |psi|^2), finite E_loc and holes; (c) float64 card against the CPU on
+     that state and 8 configurations: log|psi|, the mantissa's sign, E_loc
+     and O within 1e-8; (d) examples/tfim_pbc_trg.py at its width (2x2
+     TFIM, D=2, chi=16, float64, CG 200), 20 SR iterations (the example
+     runs 60) through exact_sum_evaluation(bc=PERIODIC) and
+     iterative_optimize, the final state's exact-sum energy within 1e-6
+     of ED of the same state; (e) contract_pbc of a random 4x4 D=2 torus
+     in float64, both schemes at chi=16, against exact_contract_pbc within
+     1e-10. No hand kernel lies on the torus path (its products and
+     factorizations are torch's); the phase prints the launch counters.
 Phase 2 also holds K5 (bmps_overlap, kernels_fermion lines) at the column
 walker's per-k shape (8 configurations x 5 start bonds x 6 columns x 4
 closures, Lx=6, chi=32, D=8, b broadcast over the start bonds) in all four
@@ -188,9 +209,12 @@ and complex128 to 1e-12), with both times, the bound (FP32 or DMMA peak,
 or bytes), the share of it reached and the launch plan (lanes a CTA).
 Phase 2 also holds the fermion slice's kernels (kernels_fermion lines): K4
 (fermion_dress) in its three outputs at 6x6, D=8, d=3, 32 chains (the
-projection, the prefix-flipped projection, one row's candidates) in all
-four dtypes, exactly equal to its plain version, with its time, the plain
-version's, a copy_ of the output's bytes and the bytes bound; and K1's
+projection, the prefix-flipped projection, one row's candidates, a
+per-chain gradient undressed through a stride-0 physical axis) in all
+four dtypes, exactly equal to its plain version, with its device time
+alone (a CUDA graph of 20 launches), its host microseconds a call, its
+time in back-to-back calls, the plain version's, a copy_ of the output's
+bytes and the bytes bound; and K1's
 backward (csrc/col_transfer_backward.cu: one launch a backward call for
 every requested gradient) at the graded holes' shapes (the sketch V and W
 scans, the pair traces; a chunk of 8 chains) in all four dtypes, every
@@ -282,12 +306,21 @@ HUBBARD = {"ly": 2, "lx": 4, "D": 4, "chi": 16, "nchains": 64,
 # prefix-flipped projection and one row's candidates
 K4_CASES = (("project", {"select_config": True, "f0": 0, "nf": 1}),
             ("project_flipped", {"select_config": True, "f0": 1, "nf": 1}),
-            ("candidates_row", {"y0": 2, "ny": 1}))
+            ("candidates_row", {"y0": 2, "ny": 1}),
+            ("undress_grad", {"select_config": True, "f0": 0, "nf": 1}))
+K4_GRAPH_LAUNCHES = 20     # launches captured in the graph one replay times
 # phase 11 (fermion_measure): measure() of phase 10 (b)'s state, the
 # conditioned estimator's count and conditioned chains
 FMEAS = {"warmup": 2, "samples": 4, "chunk": 2, "env_chunk": 8,
          "count_sweeps": 4, "cond_chains": 8, "cond_warmup": 2,
          "cond_samples": 2}
+# phase 12 (pbc): examples/heisenberg_pbc_vmc.py's width (4x4 torus, D=3,
+# chi=12, fast with one power iteration, float32), 40 + 40 SU steps
+# instead of 120 + 120; examples/tfim_pbc_trg.py's (2x2, D=2, chi=16,
+# float64, CG 200), 20 SR iterations instead of 60
+PBC = {"L": 4, "D": 3, "chi": 12, "su": ((40, 0.2), (40, 0.05)),
+       "nconf": (8, 32), "svd_nconf": (8, 32), "card_cpu_nconf": 8}
+TFIM_PBC = {"L": 2, "D": 2, "chi": 16, "iters": 20, "cg": 200, "lr": 0.1}
 HBM_BPS = 3.35e12          # H100 SXM device memory rate (data sheet)
 EINSUM_1CALL = "...alc,...auA,...uldr,...cdC->...ArC"
 EINSUM_K3 = "...amnc,...auA,...umdr,...dnef,...ceC->...ArfC"
@@ -640,17 +673,9 @@ def k3_phase(device, peak, gen):
 def k1_host_us(k1, case, reps=400):
     """Host microseconds per K1 call (wrapper + launch, meta cache warm),
     host clock over reps calls with no synchronisation in between."""
-    import torch
     _, form, env, top, site, bot = case
     call = k1.col_transfer_right if form == "right" else k1.col_transfer
-    call(env, top, site, bot)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        call(env, top, site, bot)
-    host = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return host / reps * 1e6
+    return host_us(lambda: call(env, top, site, bot), reps)
 
 
 def phase_kernels(device):
@@ -2074,46 +2099,119 @@ def phase_bosonic_close(res, device):
 # fermions: phase 2's K4 and K1-backward cases, and phase 10
 # ---------------------------------------------------------------------------
 
+def graph_ms(fn, launches=K4_GRAPH_LAUNCHES, replays=5):
+    """Device ms a call of fn, free of the host's issue rate: `launches`
+    calls captured in one CUDA graph, CUDA events around each of `replays`
+    replays (after one warm-up replay), the mean over the replays and
+    launches. fn must allocate nothing it has not allocated before (the
+    graph's pool takes its outputs)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * launches)
+    del graph
+    return ms
+
+
+def host_us(fn, reps=400):
+    """Host microseconds a call of fn (wrapper and launch), host clock over
+    reps calls with no synchronisation in between, after one warm call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / reps * 1e6
+
+
 def k4_bytes(tps, cfg, out, select_config=False, y0=0, ny=None, **_):
     """The bytes one K4 call must move: the tps slabs it reads (the rows
     [y0, y0+ny) at every value a; with select_config the distinct
-    (y, x, a) slabs the chains' configurations select there), the
+    (chain, y, x, a) slabs the configurations select there, per chain
+    where tps is per chain and a stride-0 axis a counting once), the
     configurations read once and the output written once."""
     import torch
-    ly, lx, d = tps.shape[:3]
+    per_chain = tps.dim() == 8
+    ly, lx, d = tps.shape[-7:-4]
     ny = ly - y0 if ny is None else ny
-    slab = tps[0, 0, 0].numel()
+    slab = tps.shape[-4:].numel()
     if select_config:
         rows = cfg[:, y0:y0 + ny].long()
+        if per_chain and tps.stride(3) == 0:
+            rows = torch.zeros_like(rows)
         site = torch.arange(ny * lx, device=cfg.device).reshape(ny, lx)
-        slabs = int(torch.unique(site * d + rows).numel())
+        key = site * d + rows
+        if per_chain:
+            key = key + torch.arange(cfg.shape[0], device=cfg.device)[
+                :, None, None] * (ny * lx * d)
+        slabs = int(torch.unique(key).numel())
     else:
-        slabs = ny * lx * d
+        slabs = ny * lx * d * (tps.shape[0] if per_chain else 1)
     return (slabs * slab + out.numel()) * tps.element_size() \
         + cfg.numel() * cfg.element_size()
 
 
+def k4_operands(name, dt, device, gen):
+    """(tps, cfg) of a K4 case at 6x6, D=8, d=3, 32 chains: a shared tps,
+    or for undress_grad a per-chain gradient [nc, 6, 6, D^4] expanded over
+    the physical axis (stride 0), as fermion/vmc.py passes it."""
+    import torch
+    L, D, nc, d = FLAG["L"], FLAG["D"], FLAG["nchains"], 3
+    dtype = getattr(torch, dt)
+    cfg = torch.randint(0, d, (nc, L, L), generator=gen, device=device)
+    if name == "undress_grad":
+        g = torch.randn(nc, L, L, D, D, D, D, generator=gen, device=device,
+                        dtype=torch.float64).to(dtype)
+        return g.unsqueeze(3).expand(-1, -1, -1, d, -1, -1, -1, -1), cfg
+    return torch.randn(L, L, d, D, D, D, D, generator=gen, device=device,
+                       dtype=torch.float64).to(dtype), cfg
+
+
 def k4_phase(device, gen):
     """Phase 2, K4 (fermion_dress): its three outputs at 6x6, D=8, d=3,
-    32 chains in all four dtypes against the plain version (exactly equal:
-    a multiply by +-1), timed in turns with the plain version and a copy_
-    of the output's bytes; the bound is the bytes (the tps slabs the call
-    reads, the configurations and the output: :func:`k4_bytes`) over
-    3.35 TB/s. Returns the record of the float32
-    candidates of one row (the sampler's per-row call)."""
+    32 chains (the projection with either flag, one row's candidates, the
+    undressing of a per-chain gradient through a stride-0 physical axis)
+    in all four dtypes against the plain version (exactly equal: a
+    multiply by +-1). Times: the kernel's device time alone (`ms`,
+    :func:`graph_ms`: a CUDA graph of 20 launches, the host's issue rate
+    out of it), the host microseconds a call (`host_us`), back-to-back
+    calls between CUDA events (`stream_ms`, what a caller that issues one
+    call at a time sees), the plain version and a copy_ of the output's
+    bytes (graph-timed, `copy_ms`). The bound is the bytes (the tps slabs
+    the call reads, the configurations and the output: :func:`k4_bytes`)
+    over 3.35 TB/s. Returns the record of the float32 candidates of one
+    row (the sampler's per-row call) with every case's line."""
     import torch
     from peps_tpu_torch.fermion.convert import dress_tables
     from peps_tpu_torch.fermion.peps import FermionSpace
     from peps_tpu_torch.kernels import fermion_dress as k4
-    L, D, nc, d = FLAG["L"], FLAG["D"], FLAG["nchains"], 3
+    L, D = FLAG["L"], FLAG["D"]
     tab = dress_tables(FermionSpace((0, 1, 1), D // 2, D // 2), L, L)
-    rec = None
+    rec, cases = None, []
     for dt in ("float32", "float64", "complex64", "complex128"):
-        dtype = getattr(torch, dt)
-        tps = torch.randn(L, L, d, D, D, D, D, generator=gen, device=device,
-                          dtype=torch.float64).to(dtype)
-        cfg = torch.randint(0, d, (nc, L, L), generator=gen, device=device)
         for name, kw in K4_CASES:
+            tps, cfg = k4_operands(name, dt, device, gen)
             out = k4.fermion_dress(tps, cfg, tab, **kw)
             ref = k4.fermion_dress_plain(tps, cfg, tab, **kw)
             torch.cuda.synchronize()
@@ -2121,27 +2219,34 @@ def k4_phase(device, gen):
             err = (out - ref).abs().max().item()
             src = torch.empty_like(out)
             dst = torch.empty_like(out)
-            t = _in_turns({"kern": lambda: k4.fermion_dress(tps, cfg, tab,
-                                                            **kw),
+
+            def kern():
+                return k4.fermion_dress(tps, cfg, tab, **kw)
+            t = _in_turns({"kern": kern,
                            "plain": lambda: k4.fermion_dress_plain(
-                               tps, cfg, tab, **kw),
-                           "copy": lambda: dst.copy_(src)}, 10)
+                               tps, cfg, tab, **kw)}, 10)
+            dev_ms = graph_ms(kern)
+            copy_ms = graph_ms(lambda: dst.copy_(src))
             nbytes = k4_bytes(tps, cfg, out, **kw)
             bound_ms = nbytes / HBM_BPS * 1e3
             r = {"kernel": "fermion_dress", "case": name, "dtype": dt,
                  "out_shape": list(out.shape), "exact": exact,
-                 "max_abs_err": err, "ms": t["kern"],
-                 "plain_ms": t["plain"], "copy_ms": t["copy"],
-                 "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes",
-                 "pct_of_bound": 100 * bound_ms / t["kern"],
+                 "max_abs_err": err, "ms": dev_ms, "host_us": host_us(kern),
+                 "stream_ms": t["kern"], "plain_ms": t["plain"],
+                 "copy_ms": copy_ms, "bytes": nbytes, "bound_ms": bound_ms,
+                 "bound_by": "bytes", "pct_of_bound": 100 * bound_ms / dev_ms,
                  "library_ms": None}
             log("kernels_fermion", **r)
             if not exact:
                 fail(f"fermion_dress {name} {dt}: max |kernel - plain| "
                      f"{err}, not 0")
+            cases.append({k: r[k] for k in ("case", "dtype", "ms", "host_us",
+                                            "stream_ms", "plain_ms",
+                                            "copy_ms", "bound_ms")})
             if dt == "float32" and name == "candidates_row":
                 rec = r
             del out, ref, src, dst
+    rec["cases"] = cases
     return rec
 
 
@@ -3223,6 +3328,280 @@ def phase_fermion_measure(f, device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the torus: phase 12
+# ---------------------------------------------------------------------------
+
+def dense_hamiltonian_pbc(mt, ly, lx):
+    """Dense H [d^N, d^N] of a bosonic model (numpy ModelTensors entries)
+    on the torus, over the bonds the PBC local energy sums
+    (energy_pbc.pbc_bonds) and the one-site term: <c|H|c'> as E_loc reads
+    it."""
+    import numpy as np
+    import itertools
+    from peps_tpu_torch.algorithm.energy_pbc import pbc_bonds
+    d = (mt.h_h if mt.h_h is not None else mt.h_site).shape[0]
+    n = ly * lx
+    cfgs = list(itertools.product(range(d), repeat=n))
+    index = {c: i for i, c in enumerate(cfgs)}
+    h = np.zeros((len(cfgs), len(cfgs)))
+    terms = [(np.asarray(t), pbc_bonds(ly, lx, kind).numpy())
+             for t, kind in ((mt.h_h, "h"), (mt.h_v, "v"), (mt.h_d, "d"),
+                             (mt.h_ad, "ad")) if t is not None]
+    for i, c in enumerate(cfgs):
+        for t, bonds in terms:
+            for y1, x1, y2, x2 in bonds:
+                s1, s2 = y1 * lx + x1, y2 * lx + x2
+                for p in range(d):
+                    for q in range(d):
+                        c2 = list(c)
+                        c2[s1], c2[s2] = p, q
+                        h[i, index[tuple(c2)]] += t[c[s1], c[s2], p, q]
+        if mt.h_site is not None:
+            hs = np.asarray(mt.h_site)
+            for s_ in range(n):
+                for p in range(d):
+                    c2 = list(c)
+                    c2[s_] = p
+                    h[i, index[tuple(c2)]] += hs[c[s_], p]
+    return h, np.array(cfgs).reshape(-1, ly, lx)
+
+
+def pbc_su_state(device):
+    """Phase 12 (a): the 4x4 Heisenberg torus SU from the Neel state at
+    examples/heisenberg_pbc_vmc.py's width (D=3, tau 0.2 then 0.05,
+    energy_abs_tol 1e-8), 40 + 40 steps; then to_tps_pbc in float32,
+    scaled to max |T| = 1. Returns the TPS."""
+    import numpy as np
+    import torch
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.peps import (SimpleUpdateParams, product_peps_pbc,
+                                     simple_update, to_tps_pbc)
+    L, D = PBC["L"], PBC["D"]
+    model = spin.heisenberg(1.0)
+    peps = product_peps_pbc(L, L, D, np.indices((L, L)).sum(0) % 2, 2,
+                            dtype=torch.float32, device=device)
+    stamps, stages = [], []
+
+    def observe(step, e0, en, trunc_err):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    read = fermion_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for steps, tau in PBC["su"]:
+        out = simple_update(peps, model.h_h, model.h_v, SimpleUpdateParams(
+            steps, tau, TruncParams(D, 1, 1e-10), energy_abs_tol=1e-8),
+            step_observer=observe)
+        peps = out.peps
+        stages.append({"tau": tau, "steps": out.executed_steps,
+                       "estimated_e0_per_site": out.estimated_e0 / L ** 2})
+    torch.cuda.synchronize()
+    steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    e_site = out.estimated_e0 / L ** 2
+    log("pbc", step="su", lattice=[L, L], D=D, stages=stages,
+        seconds=time.perf_counter() - t0,
+        seconds_per_su_step=sum(steps_s) / max(len(steps_s), 1),
+        neel_energy_per_site=-0.5, launches=read(),
+        peak_mem_GB=torch.cuda.max_memory_allocated(device) / 1e9)
+    if not (math.isfinite(e_site) and e_site < -0.5):
+        fail(f"pbc SU: estimated e0 per site {e_site}, not below the Neel "
+             "state's -0.5")
+    tps = to_tps_pbc(peps).to(torch.float32)
+    return tps / tps.abs().max()
+
+
+def pbc_energies(tps, device):
+    """Phase 12 (b): local_energy_and_holes_pbc of 8 and 32 Sz = 0
+    configurations (init_configs_occupancy, not drawn from |psi|^2: their
+    mean E_loc is a number, not an energy) at chi=12 under the fast scheme
+    (one power iteration) and the svd scheme; seconds per evaluation
+    (one warm call first), peak memory, launches; E_loc and holes finite."""
+    import torch
+    from peps_tpu_torch.algorithm.energy import ModelTensors
+    from peps_tpu_torch.algorithm.energy_pbc import \
+        local_energy_and_holes_pbc
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.montecarlo.engine import init_configs_occupancy
+    L, chi = PBC["L"], PBC["chi"]
+    mt = ModelTensors.from_model(spin.heisenberg(1.0), tps.dtype, device)
+    gen = torch.Generator(device=device).manual_seed(12)
+    half = L * L // 2
+    out = {}
+    for scheme, nconfs in (("fast", PBC["nconf"]), ("svd", PBC["svd_nconf"])):
+        trunc = TruncParams(chi, 1, 1e-6, scheme=scheme, rsvd_power=1)
+        for nc in nconfs:
+            cfg = init_configs_occupancy(gen, nc, L, L, {0: half, 1: half},
+                                         device)
+            if nc == nconfs[0]:
+                local_energy_and_holes_pbc(tps, cfg, mt, chi, trunc)
+            read = fermion_counters()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            res = local_energy_and_holes_pbc(tps, cfg, mt, chi, trunc)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            finite = bool(torch.isfinite(res.e_loc).all()
+                          and torch.isfinite(res.o_tensor).all())
+            log("pbc", step="local_energy", scheme=scheme, configurations=nc,
+                chi=chi, dtype=str(tps.dtype).replace("torch.", ""),
+                seconds_per_evaluation=sec, seconds_per_configuration=sec / nc,
+                mean_e_loc_per_site=float(res.e_loc.mean()) / L ** 2,
+                finite=finite, launches=read(),
+                peak_mem_GB=torch.cuda.max_memory_allocated(device) / 1e9)
+            if not finite:
+                fail(f"pbc local energy ({scheme}, {nc} configurations): "
+                     "non-finite E_loc or holes")
+            out[(scheme, nc)] = (cfg, res, sec)
+    return out
+
+
+def pbc_card_vs_cpu(tps, cfg, device):
+    """Phase 12 (c): the float64 torus local energy of the same state and
+    configurations on the card and on the CPU (the same default test
+    matrix): amplitudes (log|psi| and the mantissa's sign), holes (O) and
+    E_loc within 1e-8 relative."""
+    import torch
+    from peps_tpu_torch.algorithm.energy import ModelTensors
+    from peps_tpu_torch.algorithm.energy_pbc import \
+        local_energy_and_holes_pbc
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    chi = PBC["chi"]
+    trunc = TruncParams(chi, 1, 1e-6, scheme="fast", rsvd_power=1)
+    card, cpu = (local_energy_and_holes_pbc(
+        tps.double().to(where), cfg.to(where), ModelTensors.from_model(
+            spin.heisenberg(1.0), torch.float64, where), chi, trunc)
+        for where in (device, torch.device("cpu")))
+    errs = {"log_abs_psi": float((card.log_abs_psi.cpu() - cpu.log_abs_psi)
+                                 .abs().max()),
+            "e_loc": _rel_diff(card.e_loc.cpu(), cpu.e_loc),
+            "o": _rel_diff(card.o_tensor.cpu(), cpu.o_tensor)}
+    signs = bool(torch.equal(torch.sign(card.psi_mant.cpu()),
+                             torch.sign(cpu.psi_mant)))
+    log("pbc", step="card_vs_cpu", configurations=cfg.shape[0], chi=chi,
+        dtype="float64", errors=errs, signs_equal=signs)
+    if not (signs and all(v < 1e-8 for v in errs.values())):
+        fail(f"pbc card vs CPU: {errs}, signs equal {signs}")
+
+
+def pbc_tfim_exact(device):
+    """Phase 12 (d): examples/tfim_pbc_trg.py at its width (2x2 torus TFIM
+    J=1, h=3, D=2, chi=16, float64): 20 SR iterations (CG 200, tol 1e-8,
+    shift 1e-3, lr 0.1) of iterative_optimize over
+    exact_sum_evaluation(bc=PERIODIC); the final state's exact-sum energy
+    against ED of the same state (its dense wave function from the exact
+    torus contraction) within 1e-6, and the ED ground energy printed."""
+    import numpy as np
+    import torch
+    from peps_tpu_torch.algorithm.energy import ModelTensors
+    from peps_tpu_torch.algorithm.exact_sum import (
+        all_configs, exact_sum_energy_gradient, exact_sum_evaluation)
+    from peps_tpu_torch.lattice import BoundaryCondition
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    from peps_tpu_torch.optimizer.cg import CGParams
+    from peps_tpu_torch.optimizer.optimizer import (OptimizerParams,
+                                                    SRParams,
+                                                    iterative_optimize)
+    from peps_tpu_torch.tps import exact_contract_pbc, random_tps
+    p = TFIM_PBC
+    n, pbc_bc = p["L"], BoundaryCondition.PERIODIC
+    model = spin.transverse_field_ising(1.0, 3.0)
+    configs = all_configs(n, n, 2)
+    trunc = TruncParams(p["chi"], 1, 0.0)
+    tps = random_tps(torch.Generator().manual_seed(0), n, n, 2, p["D"],
+                     dtype=torch.float64, bc=pbc_bc, scale=0.5,
+                     device="cpu").to(device)
+
+    def evaluate(state, step):
+        return exact_sum_evaluation(state, configs, model, p["chi"], trunc,
+                                    with_sr_buffers=True, bc=pbc_bc)
+
+    params = OptimizerParams(p["iters"], SRParams(CGParams(p["cg"], 1e-8),
+                                                  1e-3), lr=p["lr"])
+    read = fermion_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = iterative_optimize(tps, evaluate, params)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    state = res.state
+    e_sum = float(exact_sum_energy_gradient(state, configs, model, p["chi"],
+                                            trunc, with_grad=False,
+                                            bc=pbc_bc).energy)
+    mt = ModelTensors.from_model(model, torch.float64, "cpu")
+    h, cfgs = dense_hamiltonian_pbc(mt, n, n)
+    st = state.cpu().numpy()
+    psi = np.array([exact_contract_pbc(st[np.arange(n)[:, None],
+                                          np.arange(n)[None, :], c])
+                    for c in cfgs])
+    e_ed_state = float(psi @ h @ psi / (psi @ psi))
+    e_ground = float(np.linalg.eigvalsh(h)[0])
+    log("pbc", step="tfim_exact_sr", lattice=[n, n], D=p["D"], chi=p["chi"],
+        iterations=len(res.energies), energies=[float(e) for e in
+                                                res.energies],
+        lowest_energy=float(res.lowest_energy), seconds=sec,
+        seconds_per_iteration=sec / max(len(res.energies), 1),
+        exact_sum_energy=e_sum, ed_energy_of_state=e_ed_state,
+        ed_ground_energy=e_ground, launches=read())
+    if abs(e_sum - e_ed_state) > 1e-6 * max(1.0, abs(e_ed_state)):
+        fail(f"pbc TFIM: exact-sum energy {e_sum} against ED of the state "
+             f"{e_ed_state}")
+
+
+def pbc_contract_exact(device):
+    """Phase 12 (e): contract_pbc of a random 4x4 D=2 torus network in
+    float64 on the card, both schemes at chi=16 (every bond's rank),
+    against exact_contract_pbc within 1e-10."""
+    import numpy as np
+    import torch
+    from peps_tpu_torch.contraction.pbc import contract_pbc
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.tps import exact_contract_pbc
+    tn = np.random.default_rng(44).normal(size=(4, 4, 2, 2, 2, 2)) * 0.5
+    want = exact_contract_pbc(tn)
+    errs = {}
+    for scheme in ("svd", "fast"):
+        m, lw = contract_pbc(torch.as_tensor(tn, device=device), 16,
+                             TruncParams(16, 1, 0.0, scheme=scheme,
+                                         rsvd_power=1))
+        got = float(m) * math.exp(float(lw))
+        errs[scheme] = abs(got - want) / abs(want)
+    log("pbc", step="contract_vs_exact", lattice=[4, 4], D=2, chi=16,
+        relative_errors=errs)
+    if not all(v < 1e-10 for v in errs.values()):
+        fail(f"pbc contract_pbc against the exact torus contraction: {errs}")
+
+
+def phase_pbc(device):
+    """Phase 12: the torus ((a)-(e) above). Returns the launches of every
+    hand kernel over the phase (the torus runs on torch's products and
+    factorizations alone)."""
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    read = fermion_counters()
+    tps = pbc_su_state(device)
+    energies = pbc_energies(tps, device)
+    pbc_card_vs_cpu(tps, energies[("fast", PBC["card_cpu_nconf"])][0], device)
+    add(read())
+    read = fermion_counters()
+    pbc_tfim_exact(device)
+    pbc_contract_exact(device)
+    add(read())
+    log("pbc", step="launches", launches=totals)
+    return totals
+
+
 def main():
     try:
         import torch
@@ -3270,6 +3649,7 @@ def main():
     launches_f = timed("fermions", phase_fermions, device)
     launches_fm = timed("fermion_measure", phase_fermion_measure,
                         launches_f, device)
+    launches_pbc = timed("pbc", phase_pbc, device)
     graded = launches_f["graded_vmc"]
     k4 = kern["fermion"]["fermion_dress"]
     k5 = kern["fermion"]["bmps_overlap"]
@@ -3326,9 +3706,10 @@ def main():
          "launches_jw": launches_f["jw_hubbard"]["fermion_dress"],
          "launches_graded_su": launches_f["graded_su"]["fermion_dress"],
          "launches_fermion_measure": launches_fm["fermion_dress"],
-         **{k: k4[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
-                               "copy_ms", "bound_ms", "bound_by",
-                               "library_ms")}},
+         **{k: k4[k] for k in ("case", "max_abs_err", "ms", "host_us",
+                               "stream_ms", "plain_ms", "copy_ms",
+                               "bound_ms", "bound_by", "library_ms",
+                               "cases")}},
         {"name": "bmps_overlap", "route": "cuda",
          "source": "peps_tpu_torch/csrc/bmps_overlap.cu",
          "replaces": "peps_tpu/algorithm/measure_fermion.py:386",

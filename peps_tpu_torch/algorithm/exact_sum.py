@@ -5,8 +5,10 @@ Enumerate the configurations, weight each by |psi|^2 and sum exactly. The
 configuration batch goes through the chain-batched local energy in pieces
 of ``batch_size`` (``torch.split``, where the reference uses ``lax.map``):
 the bosonic one, the Jordan-Wigner one of a fermionic model, or the graded
-one of a ``GradedFermionModel``. Periodic boundaries come with ROADMAP
-queue 1, item 11.
+one of a ``GradedFermionModel``; with ``bc=PERIODIC`` the torus local
+energy of the coarse-graining contractor (bosonic models only; the
+reference's exact sum would take a fermionic model's open-boundary
+evaluator there, the port refuses it).
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from peps_tpu_torch.algorithm.energy import (EnergyHoles,
                                              model_kind, model_tensors)
 from peps_tpu_torch.algorithm.energy_fermion import \
     local_energy_and_holes_fermion
+from peps_tpu_torch.algorithm.energy_pbc import local_energy_and_holes_pbc
+from peps_tpu_torch.algorithm.mc_evaluator import require_bosonic_for_pbc
 from peps_tpu_torch.lattice import BoundaryCondition
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.optimizer.optimizer import Evaluation
@@ -86,17 +90,17 @@ class ExactSumResult(NamedTuple):
 def _evaluate(tps, configs, model, chi, trunc, with_holes, batch_size, bc):
     """EnergyHoles of every configuration, in pieces of batch_size."""
     model = model_tensors(model, tps.dtype, tps.device, "exact sum")
+    require_bosonic_for_pbc(model, bc)
     kind = model_kind(model)
     if kind == "graded":
         from peps_tpu_torch.fermion.vmc import local_energy_and_holes_graded
         local = local_energy_and_holes_graded
     elif kind == "jw":
         local = local_energy_and_holes_fermion
+    elif bc == BoundaryCondition.PERIODIC:
+        local = local_energy_and_holes_pbc
     else:
         local = local_energy_and_holes
-    if bc != BoundaryCondition.OPEN:
-        raise NotImplementedError(
-            "exact sums with periodic boundaries: ROADMAP queue 1, item 11")
     configs = torch.as_tensor(configs, device=tps.device).long()
     pieces = torch.split(configs, batch_size) if batch_size else (configs,)
     res = [local(tps, c, model, chi, trunc, with_holes=with_holes)

@@ -31,7 +31,7 @@ from peps_tpu_torch.algorithm.energy import (_local_energy, model_kind,
 from peps_tpu_torch.algorithm.energy_fermion import jw_tables_and_energy
 from peps_tpu_torch.contraction import bmps
 from peps_tpu_torch.kernels.centered_o import centered_o
-from peps_tpu_torch.lattice import transpose_tps
+from peps_tpu_torch.lattice import BoundaryCondition, transpose_tps
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.montecarlo.statistics import mean_and_binned_error
 from peps_tpu_torch.montecarlo.sweep import UpdateRule, mc_sweep
@@ -51,6 +51,43 @@ class MCParams:
 
 
 UniformSource = Callable[[], tuple]
+
+
+def require_bosonic_for_pbc(model, bc) -> None:
+    """Periodic boundaries contract through the coarse-graining
+    contractor, which is boson-only as the reference's: a fermionic model
+    with ``bc=PERIODIC`` is refused (ValueError), as the reference's
+    ``require_bosonic_for_pbc``."""
+    if bc != BoundaryCondition.PERIODIC:
+        return
+    if model_kind(model) in ("jw", "graded") or hasattr(model, "channels_h"):
+        raise ValueError(
+            "periodic boundaries use the coarse-graining contractor, which "
+            "is boson-only (as the reference's); fermionic models require "
+            "BoundaryCondition.OPEN")
+
+
+def _pbc_eval_batch(tps, configs, model, chi: int, trunc: TruncParams,
+                    with_grad: bool, eval_chunk: int | None, with_sr: bool):
+    """The PBC local-energy (and holes) pass over chains, eval_chunk chains
+    a call (None: all). Returns (e_loc [nc], O [nc, P] with SR else None,
+    sum of conj(O) [P], sum of E_loc conj(O) [P] without SR, log|psi|
+    [nc]), the reference's per-sample tuple; without a gradient the three
+    O entries are None."""
+    from peps_tpu_torch.algorithm.energy_pbc import \
+        local_energy_and_holes_pbc
+    nc = configs.shape[0]
+    parts = [local_energy_and_holes_pbc(tps, configs[sl], model, chi, trunc,
+                                        with_holes=with_grad)
+             for sl in bmps.chain_slices(nc, eval_chunk)]
+    e_loc = torch.cat([p.e_loc for p in parts])
+    log_abs = torch.cat([p.log_abs_psi for p in parts])
+    if not with_grad:
+        return e_loc, None, None, None, log_abs
+    o_flat = torch.cat([p.o_tensor for p in parts]).reshape(nc, -1)
+    return (e_loc, o_flat if with_sr else None, o_flat.conj().sum(0),
+            None if with_sr else (e_loc[:, None] * o_flat.conj()).sum(0),
+            log_abs)
 
 
 def _local_fn(tps, model, chi, trunc, with_grad):

@@ -22,7 +22,7 @@ walkers share; the reference builds the stacks twice.
 The S+S- walker (:func:`_row_offdiag_corr`) is a scan of column transfers
 (kernel K1 on the card), batched over chains, rows and start columns; the
 pair correlators are in :mod:`peps_tpu_torch.algorithm.measure_fermion`.
-Periodic boundaries come with ROADMAP queue 1, items 11-12.
+Periodic boundaries wait for the torus sampler (ROADMAP queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -250,8 +250,8 @@ def measure(tps: torch.Tensor, model, params: MeasurementParams, chi: int,
     walker pass outside the clock)."""
     if bc is not None and bc != BoundaryCondition.OPEN:
         raise NotImplementedError(
-            "measurement with periodic boundaries: ROADMAP queue 1, items "
-            "11-12")
+            "measurement with periodic boundaries needs the torus sampler: "
+            "ROADMAP queue 1, item 12")
     dev = tps.device
     mt = model_tensors(model, tps.dtype, dev, "measure")
     kind = model_kind(mt)

@@ -11,8 +11,9 @@ tests replace the last two with the reference's replayed uniforms
 configurations. Bosonic models, fermionic models in the Jordan-Wigner
 representation (the bosonic sweep, e.g. Suwa-Todo with a conservation
 mask) and graded fermionic states (a ``GradedFermionModel``: the graded
-rescue, normalization and env-shared sweep). Open boundaries only: PBC (a
-``bc`` field) comes with ROADMAP queue 1, items 11-12.
+rescue, normalization and env-shared sweep). Open boundaries only:
+``bc=PERIODIC`` is refused until the torus sampler (ROADMAP queue 1, item
+12); the torus local energy and exact sums are ported.
 """
 from __future__ import annotations
 
@@ -24,7 +25,9 @@ import torch
 from peps_tpu_torch.algorithm.energy import model_kind, model_tensors
 from peps_tpu_torch.algorithm.mc_evaluator import (MCParams, _sweep_fn,
                                                    mc_energy_grad,
-                                                   mc_energy_only)
+                                                   mc_energy_only,
+                                                   require_bosonic_for_pbc)
+from peps_tpu_torch.lattice import BoundaryCondition
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.montecarlo.engine import (ensure_validity,
                                               init_configs_occupancy,
@@ -43,6 +46,7 @@ class VMCParams:
     optimizer: OptimizerParams
     rule: UpdateRule = UpdateRule("exchange")
     occupancy: tuple | None = None   # ((state, count), ...) or None = uniform
+    bc: BoundaryCondition = BoundaryCondition.OPEN
 
 
 class VMCResult(NamedTuple):
@@ -81,6 +85,11 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
         raise ValueError(f"model physical dimension {model.phys_dim} != TPS "
                          f"physical dimension {d} (tps shape {tps.shape})")
     mt = model_tensors(model, tps.dtype, dev, "vmc_optimize")
+    require_bosonic_for_pbc(mt, params.bc)
+    if params.bc != BoundaryCondition.OPEN:
+        raise NotImplementedError(
+            "vmc_optimize with periodic boundaries needs the torus sampler: "
+            "ROADMAP queue 1, item 12")
     graded = model_kind(mt) == "graded"
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)

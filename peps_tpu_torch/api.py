@@ -1,7 +1,7 @@
 """One-call import surface of the port (port of ``peps_tpu/api.py``).
 
 It holds the names of the reference's ``__all__`` that the port has so
-far; later slices add the rest (the PBC and loop-update names).
+far, the torus among them; later slices add the rest (the loop update).
 """
 from __future__ import annotations
 
@@ -23,6 +23,8 @@ from peps_tpu_torch.algorithm.registry import (Observable,
 from peps_tpu_torch.algorithm.vmc_optimize import (VMCParams, VMCResult,
                                                    vmc_optimize)
 from peps_tpu_torch.contraction.bmps import entanglement_entropy
+from peps_tpu_torch.contraction.pbc import (amplitude_pbc, contract_pbc,
+                                            punch_all_holes_pbc)
 from peps_tpu_torch.lattice import BoundaryCondition
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.fermion.convert import fermion_project
@@ -45,7 +47,8 @@ from peps_tpu_torch.optimizer.optimizer import (AdaGradParams, AdamParams,
                                                 OptimizerParams, SGDParams,
                                                 SRParams)
 from peps_tpu_torch.peps import (PEPS, SimpleUpdateParams, product_peps,
-                                 simple_update, to_tps)
+                                 product_peps_pbc, simple_update, to_tps,
+                                 to_tps_pbc)
 from peps_tpu_torch.peps_cluster import (simple_update_nnn,
                                          simple_update_triangle)
 from peps_tpu_torch.tps import (expand_bond_dim, load_tps, project,
@@ -73,4 +76,6 @@ __all__ = [
     "GradedFermionModel", "amplitude_fermion",
     "local_energy_and_holes_graded", "mc_sweep_fermion",
     "mc_sweep_fermion_shared",
+    "product_peps_pbc", "to_tps_pbc", "contract_pbc", "amplitude_pbc",
+    "punch_all_holes_pbc",
 ]

@@ -182,6 +182,65 @@ def _sketch_pinv_apply(a, w, eps_rel):
     return torch.linalg.solve_triangular(l.mH, y, upper=True)
 
 
+def compress_sketch(mps: torch.Tensor, chi: int, trunc: TruncParams,
+                    oversample: int = 8,
+                    blocks: SketchBlocks | None = None) -> CompressResult:
+    """Randomized two-sided compression of a grown MPS [..., Lx, m, D, m]
+    -> [..., Lx, chi, D, chi] (port of ``bmps.py:688 compress_sketch``):
+    the right sketches V and left sketches W from the Gaussian mixing
+    blocks (default :func:`sketch_blocks`, the ones
+    :func:`absorb_row_sketch` uses), the oblique bond factors
+    pinv(W^T V) W^T, the cores assembled and normalised. The unfused form:
+    :func:`absorb_row_sketch` is ``multiply_mpo`` followed by this."""
+    lx, m, dv = mps.shape[-4], mps.shape[-3], mps.shape[-2]
+    batch = mps.shape[:-4]
+    dtype, dev = mps.dtype, mps.device
+    rdt = mps.real.dtype if mps.is_complex() else dtype
+    eps_rel = 1e-12 if torch.finfo(rdt).bits >= 64 else 1e-5
+    if blocks is None:
+        blocks = sketch_blocks(lx, dv, chi, oversample, dtype, dev)
+    z_last, z_mid, y_first, y_mid = blocks
+
+    v, _ = _normalize(mps[..., lx - 1, :, :, 0] @ z_last, 2)    # [m, chi]
+    vs = [None] * (lx - 1)
+    vs[lx - 2] = v
+    for x in range(lx - 2, 0, -1):
+        t = torch.einsum("...avc,...ci->...avi", mps[..., x, :, :, :], v)
+        v, _ = _normalize(t.reshape(*batch, m, dv * chi) @ z_mid[x - 1], 2)
+        vs[x - 1] = v
+    v = torch.stack(vs, dim=-3)                            # [lx-1, m, chi]
+
+    w, _ = _normalize(torch.einsum("...vc,vj->...cj", mps[..., 0, 0, :, :],
+                                   y_first), 2)                 # [m, losk]
+    ws = [w]
+    for x in range(1, lx - 1):
+        t = torch.einsum("...ai,...avc->...vic", w, mps[..., x, :, :, :])
+        w, _ = _normalize(torch.einsum("...vic,vij->...cj", t,
+                                       y_mid[x - 1]), 2)
+        ws.append(w)
+    w = torch.stack(ws, dim=-3)                            # [lx-1, m, losk]
+
+    a = torch.einsum("...bml,...bmc->...blc", w, v)
+    g = _sketch_pinv_apply(a, w, eps_rel)                  # [lx-1, chi, m]
+    first = torch.zeros(*batch, chi, dv, chi, dtype=dtype, device=dev)
+    first[..., 0, :, :] = torch.einsum("...vc,...cj->...vj",
+                                       mps[..., 0, 0, :, :], v[..., 0, :, :])
+    cores = [first]
+    if lx > 2:
+        inner = torch.einsum("...xka,...xavc,...xcj->...xkvj",
+                             g[..., :lx - 2, :, :],
+                             mps[..., 1:lx - 1, :, :, :], v[..., 1:, :, :])
+        cores += list(inner.unbind(-4))
+    last = torch.zeros(*batch, chi, dv, chi, dtype=dtype, device=dev)
+    last[..., :, :, 0] = torch.einsum("...ka,...av->...kv",
+                                      g[..., lx - 2, :, :],
+                                      mps[..., lx - 1, :, :, 0])
+    cores.append(last)
+    out, norms = _normalize(torch.stack(cores, dim=-4), 3)
+    return CompressResult(out, torch.log(norms).sum(-1),
+                          torch.zeros(batch, dtype=rdt, device=dev))
+
+
 def absorb_row_sketch(bmps: torch.Tensor, row: torch.Tensor, chi: int,
                       trunc: TruncParams, oversample: int = 8,
                       blocks: SketchBlocks | None = None) -> CompressResult:

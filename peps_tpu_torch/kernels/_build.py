@@ -76,7 +76,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name in ("fermion_dress_f32", "fermion_dress_f64",
                  "fermion_dress_c64", "fermion_dress_c128"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
     for name in ("bmps_overlap_f32", "bmps_overlap_f64", "bmps_overlap_c64",
                  "bmps_overlap_c128"):

@@ -25,11 +25,16 @@ its last four axes must be contiguous, the others may have any stride
 Pp0 is computed in the kernel from config [B, Ly, Lx].
 
 On a CPU tensor :func:`fermion_dress` runs the plain version; on a CUDA
-tensor it launches the kernel (``csrc/fermion_dress.cu``) or raises.
+tensor it launches the kernel (``csrc/fermion_dress.cu``) or raises. The
+wrapper keeps its host work small, since a call moves a few tens of
+microseconds of data: the device statics are cached by the tables
+object's identity, the launch meta is one ``struct.pack``, and the device
+context is entered only when the tensor is not on the current device.
 """
 from __future__ import annotations
 
-import ctypes
+import struct
+from contextlib import nullcontext
 from typing import NamedTuple
 
 import numpy as np
@@ -39,7 +44,7 @@ ENTRIES = {torch.float32: "fermion_dress_f32",
            torch.float64: "fermion_dress_f64",
            torch.complex64: "fermion_dress_c64",
            torch.complex128: "fermion_dress_c128"}
-META_INTS = 16
+META_INTS = 19
 SCALAR_TERMS = ("pi", "pi_pp", "pi_pc", "pp", "pc")
 PAIR_LEGS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))   # u l d r
 LEG_TERMS = ("static", "pi", "pp", "pc")
@@ -166,25 +171,89 @@ def entry_name(dtype) -> str:
 
 
 _STATIC: dict = {}
+_META = struct.Struct(f"{META_INTS}q")
+PASS_VECTORS = 1024  # kChunk of the source: one unrolled pass of a CTA
+TARGET_CTAS = 132 * 8  # the H100's SMs x 8: fewer slabs are split
 
 
 def _static_device(tables: DressTables, device):
-    """(codes int32 [Ly*Lx], leg parity uint8 [D^4]) on the device, cached
-    per tables and device."""
-    key = (tables.scalar.tobytes(), tables.pairs.tobytes(),
-           tables.legs.tobytes(), tables.scalar.shape, tables.bond_parity,
-           str(device))
+    """(codes int32 [Ly*Lx] on the device, pp_mask, bp_mask) of ``tables``,
+    cached per tables object and device: the key is the object's id, and a
+    hit holds the object itself, so a recycled id is not mistaken for it."""
+    key = (id(tables), device)
     hit = _STATIC.get(key)
-    if hit is None:
-        pb = np.asarray(tables.bond_parity, dtype=np.int64)
-        D = pb.shape[0]
-        q = (pb[:, None, None, None] | (pb[None, :, None, None] << 1)
-             | (pb[None, None, :, None] << 2) | (pb[None, None, None, :] << 3))
+    if hit is None or hit[0] is not tables:
+        pp_mask = sum(int(p) << s for s, p in enumerate(tables.phys_parity))
+        bp_mask = sum(int(p) << s for s, p in enumerate(tables.bond_parity))
         hit = _STATIC[key] = (
-            torch.as_tensor(tables.codes().reshape(-1), device=device),
-            torch.as_tensor(q.reshape(D ** 4).astype(np.uint8),
-                            device=device))
-    return hit
+            tables, torch.as_tensor(tables.codes().reshape(-1),
+                                    device=device), pp_mask, bp_mask)
+    return hit[1:]
+
+
+def work_units(nb: int, slabs: int, per_slab: int):
+    """(CTAs a chain, vectors a CTA) of a launch over nb chains of ``slabs``
+    slabs of ``per_slab`` 16-byte vectors (values where the slabs are not
+    aligned): a whole slab a CTA, split into chunks of whole passes
+    (PASS_VECTORS each) only where the slabs do not reach TARGET_CTAS;
+    at most 65535 CTAs a chain (the grid's y limit; the kernel takes the
+    rest round-robin)."""
+    passes = -(-per_slab // PASS_VECTORS)
+    chunks = max(1, min(passes, -(-TARGET_CTAS // max(nb * slabs, 1))))
+    chunk = -(-passes // chunks) * PASS_VECTORS
+    return max(1, min(slabs * -(-per_slab // chunk), 65535)), chunk
+
+
+def launch_args(tps, config, tables: DressTables, y0: int, ny: int | None,
+                select_config: bool, f0: int, nf: int):
+    """(tps, config, codes, out, meta) of one kernel call: the operands as
+    the kernel reads them (tps [Ly, Lx, d, ...] shared or [1 or B, Ly, Lx,
+    d, ...] with its last four axes contiguous, config int64 contiguous,
+    the site codes), the output allocated, and the packed launch meta
+    (``DressMeta`` in the source). Raises on what the kernel does not
+    take."""
+    ly, lx = config.shape[-2:]
+    ny = ly - y0 if ny is None else ny
+    b = config.shape[0]
+    shape = tps.shape
+    d, D = shape[-5], shape[-1]
+    if shape[-4:] != (D, D, D, D) or tuple(shape[-7:-5]) != (ly, lx):
+        raise ValueError(f"fermion_dress: tps {tuple(shape)} against a "
+                         f"{ly}x{lx} configuration")
+    if D > 64 or d > 32 or not 0 <= y0 <= y0 + ny <= ly or nf < 1 \
+            or f0 + nf > 2 or (y0 + ny) * lx > 39000:
+        raise ValueError(f"fermion_dress: D={D}, d={d}, rows [{y0}, "
+                         f"{y0 + ny}) of width {lx}, flags [{f0}, "
+                         f"{f0 + nf})")
+    nd = len(shape)
+    if nd not in (7, 8) or (nd == 8 and shape[0] not in (1, b)):
+        raise ValueError(f"fermion_dress: tps {tuple(shape)} for {b} chains")
+    # a lazily conjugated or negated view holds other values than its data
+    if tps.is_conj() or tps.is_neg():
+        tps = tps.resolve_conj().resolve_neg()
+    d4 = D ** 4
+    st = tps.stride()
+    if st[-4:] != (D ** 3, D ** 2, D, 1):
+        tps = tps.contiguous()
+        st = tps.stride()
+    sb = st[0] if nd == 8 and shape[0] > 1 else 0
+    sy, sx, sa = st[-7:-4]
+    dev = tps.device
+    if config.dtype != torch.int64 or config.device != dev \
+            or not config.is_contiguous():
+        config = config.to(device=dev, dtype=torch.int64).contiguous()
+    codes, pp_mask, bp_mask = _static_device(tables, dev)
+    na = 1 if select_config else d
+    out = torch.empty(b, ny, lx, na, nf, D, D, D, D, dtype=tps.dtype,
+                      device=dev)
+    es = tps.element_size()
+    vec = int(all(v * es % 16 == 0 for v in (sb, sy, sx, sa, d4))
+              and tps.data_ptr() % 16 == 0)
+    splits, chunk = work_units(b, ny * lx * na,
+                               d4 * es // 16 if vec else d4)
+    meta = _META.pack(b, ly, lx, d, D, y0, ny, int(select_config), f0, nf,
+                      sb, sy, sx, sa, pp_mask, bp_mask, splits, vec, chunk)
+    return tps, config, codes, out, meta
 
 
 def fermion_dress(tps, config, tables: DressTables, y0: int = 0,
@@ -193,52 +262,24 @@ def fermion_dress(tps, config, tables: DressTables, y0: int = 0,
     """K4 wrapper. CPU tensors: plain version. CUDA tensors: the kernel.
     Returns [B, ny, Lx, na, nf, D, D, D, D] (na = 1 with select_config,
     else d)."""
-    if tps.device.type == "cpu":
+    dev = tps.device
+    if dev.type == "cpu":
         return fermion_dress_plain(tps, config, tables, y0, ny,
                                    select_config, f0, nf)
-    if tps.device.type != "cuda":
-        raise RuntimeError(f"fermion_dress runs on cpu or cuda, not "
-                           f"{tps.device}")
+    if dev.type != "cuda":
+        raise RuntimeError(f"fermion_dress runs on cpu or cuda, not {dev}")
     from peps_tpu_torch.kernels._build import check, cuda_library
     name = entry_name(tps.dtype)
-    lib = cuda_library().lib
-    ly, lx = config.shape[-2:]
-    ny = ly - y0 if ny is None else ny
-    b = config.shape[0]
-    d, D = tps.shape[-5], tps.shape[-1]
-    if tps.shape[-4:] != (D, D, D, D) or tuple(tps.shape[-7:-5]) != (ly, lx):
-        raise ValueError(f"fermion_dress: tps {tuple(tps.shape)} against a "
-                         f"{ly}x{lx} configuration")
-    if D > 64 or d > 32 or not 0 <= y0 <= y0 + ny <= ly or nf < 1 \
-            or f0 + nf > 2:
-        raise ValueError(f"fermion_dress: D={D}, d={d}, rows [{y0}, "
-                         f"{y0 + ny}), flags [{f0}, {f0 + nf})")
-    if tps.dim() == 7:
-        tps = tps.unsqueeze(0)
-    # a lazily conjugated or negated view holds other values than its data
-    tps = tps.resolve_conj().resolve_neg()
-    if tps.dim() != 8 or tps.shape[0] not in (1, b):
-        raise ValueError(f"fermion_dress: tps {tuple(tps.shape)} for {b} "
-                         "chains")
-    if tps.stride()[-4:] != (D ** 3, D ** 2, D, 1):
-        tps = tps.contiguous()
-    cfg = config.to(device=tps.device, dtype=torch.int64).contiguous()
-    codes, legpar = _static_device(tables, tps.device)
-    na = 1 if select_config else d
-    out = torch.empty(b, ny, lx, na, nf, D, D, D, D, dtype=tps.dtype,
-                      device=tps.device)
+    fn = getattr(cuda_library().lib, name)
+    tps, config, codes, out, meta = launch_args(
+        tps, config, tables, y0, ny, select_config, f0, nf)
     if out.numel() == 0:
         return out
-    sb = 0 if tps.shape[0] == 1 else tps.stride(0)
-    pp_mask = sum(int(p) << s for s, p in enumerate(tables.phys_parity))
-    meta = [b, ly, lx, d, D, y0, ny, int(select_config), f0, nf,
-            sb, tps.stride(1), tps.stride(2), tps.stride(3), pp_mask, 0]
-    meta_c = (ctypes.c_int64 * META_INTS)(*meta)
-    with torch.cuda.device(tps.device):
-        check(getattr(lib, name)(
-            tps.data_ptr(), cfg.data_ptr(), codes.data_ptr(),
-            legpar.data_ptr(), out.data_ptr(), meta_c,
-            torch.cuda.current_stream(tps.device).cuda_stream))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with (nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        check(fn(tps.data_ptr(), config.data_ptr(), codes.data_ptr(),
+                 out.data_ptr(), meta, stream))
     fermion_dress.launches += 1
     return out
 

@@ -32,24 +32,20 @@ def boundary_mask(ly: int, lx: int, d: int, D: int,
     return mask
 
 
-def _open_only(bc: BoundaryCondition, what: str) -> None:
-    if bc != BoundaryCondition.OPEN:
-        raise NotImplementedError(f"{what} with periodic boundaries: ROADMAP "
-                                  "queue 1, item 11")
-
-
 def nn_bonds_h(ly: int, lx: int,
                bc: BoundaryCondition = BoundaryCondition.OPEN) -> list:
-    """Horizontal nearest-neighbour bonds ((y, x), (y, x+1)), row by row."""
-    _open_only(bc, "nn_bonds_h")
-    return [((y, x), (y, x + 1)) for y in range(ly) for x in range(lx - 1)]
+    """Horizontal nearest-neighbour bonds ((y, x), (y, x+1)), row by row;
+    on the torus also the wrap bonds ((y, Lx-1), (y, 0))."""
+    xs = range(lx - 1) if bc == BoundaryCondition.OPEN else range(lx)
+    return [((y, x), (y, (x + 1) % lx)) for y in range(ly) for x in xs]
 
 
 def nn_bonds_v(ly: int, lx: int,
                bc: BoundaryCondition = BoundaryCondition.OPEN) -> list:
-    """Vertical nearest-neighbour bonds ((y, x), (y+1, x)), row by row."""
-    _open_only(bc, "nn_bonds_v")
-    return [((y, x), (y + 1, x)) for y in range(ly - 1) for x in range(lx)]
+    """Vertical nearest-neighbour bonds ((y, x), (y+1, x)), row by row;
+    on the torus also the wrap bonds ((Ly-1, x), (0, x))."""
+    ys = range(ly - 1) if bc == BoundaryCondition.OPEN else range(ly)
+    return [((y, x), ((y + 1) % ly, x)) for y in ys for x in range(lx)]
 
 
 def transpose_lattice(tn: torch.Tensor) -> torch.Tensor:

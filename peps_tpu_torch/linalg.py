@@ -3,8 +3,9 @@
 Truncation keeps the static rank ``d_max`` and masks discarded singular
 triples to exact zeros, as the reference does. Every function takes leading
 batch dimensions. Batched QR/SVD go to ``torch.linalg`` (cuSOLVER on the
-card). ``svd_safe`` and its custom VJP are off the OBC path: they come with
-PBC contraction (ROADMAP queue 1, item 11).
+card). :func:`svd_safe` is an SVD whose backward stays finite at
+degenerate singular values (the torus contractor differentiates through
+it).
 """
 from __future__ import annotations
 
@@ -129,3 +130,83 @@ def expm_taylor(mat: torch.Tensor, order: int = 16) -> torch.Tensor:
         term = term @ mat / n
         acc = acc + term
     return acc
+
+
+# ---------------------------------------------------------------------------
+# Degenerate-safe SVD for autograd (the torus contractor's holes)
+# ---------------------------------------------------------------------------
+
+def svd_safe_backward(u, s, vh, du, ds, dvh):
+    """The reference's regularised SVD cotangent map (``peps_tpu/linalg.py:
+    _svd_safe_bwd``) for factors u [..., m, k], s [..., k], vh [..., k, n]
+    and cotangents du, ds, dvh (any may be None), in JAX's convention (a
+    transpose, no conjugation). The 1/(s_i^2 - s_j^2) factors are
+    regularised as diff / (diff^2 + eps), eps = 1e-12 max s^2 floored at
+    the smallest normal number (so a zero matrix gives 0, not 0/0); the
+    off-range terms of a rectangular matrix are added. Returns d mat
+    [..., m, n]."""
+    m, n, k = u.shape[-2], vh.shape[-1], s.shape[-1]
+    dt = u.dtype
+    s2 = s * s
+    eps = torch.clamp(1e-12 * s2.amax(-1, keepdim=True),
+                      min=_tiny(s.dtype))[..., None]
+    diff = s2[..., None, :] - s2[..., :, None]
+    f = diff / (diff * diff + eps)
+    f = f * (1.0 - torch.eye(k, dtype=f.dtype, device=f.device))
+    sinv = torch.where(s > 0, 1.0 / torch.where(s > 0, s, torch.ones_like(s)),
+                       torch.zeros_like(s))
+    zeros = torch.zeros(*s.shape[:-1], k, k, dtype=dt, device=u.device)
+    uh_du = u.mH @ du if du is not None else zeros
+    v = vh.mH
+    dv = dvh.mH if dvh is not None else torch.zeros_like(v)
+    vh_dv = vh @ dv
+    j_u = f.to(dt) * uh_du
+    j_v = f.to(dt) * vh_dv
+    s_c = s.to(dt)
+    term = (j_u + j_u.mH) * s_c[..., None, :] \
+        + s_c[..., :, None] * (j_v + j_v.mH)
+    if ds is not None:
+        term = term + torch.diag_embed(ds.to(dt))
+    dmat = u @ term @ vh
+    if m > k and du is not None:
+        proj = torch.eye(m, dtype=dt, device=u.device) - u @ u.mH
+        dmat = dmat + proj @ du @ (sinv.to(dt)[..., :, None] * vh)
+    if n > k and dvh is not None:
+        proj = torch.eye(n, dtype=dt, device=u.device) - v @ vh
+        dmat = dmat + (u * sinv.to(dt)[..., None, :]) @ dv.mH @ proj
+    return dmat
+
+
+class SvdSafe(torch.autograd.Function):
+    """Thin SVD whose backward is :func:`svd_safe_backward`. PyTorch's
+    gradient of a complex tensor is the conjugate of JAX's cotangent, so
+    the backward maps conj(cotangent) and conjugates the result (the
+    identity for real tensors)."""
+
+    @staticmethod
+    def forward(ctx, mat):
+        # a non-finite matrix gives NaN factors, as JAX's SVD does, instead
+        # of torch's error, so a batch keeps its finite members
+        bad = ~torch.isfinite(mat).all(-1).all(-1)
+        u, s, vh = torch.linalg.svd(
+            torch.where(bad[..., None, None], torch.zeros_like(mat), mat),
+            full_matrices=False)
+        nan = torch.full((), float("nan"), dtype=s.dtype, device=s.device)
+        u = torch.where(bad[..., None, None], nan.to(u.dtype), u)
+        s = torch.where(bad[..., None], nan, s)
+        vh = torch.where(bad[..., None, None], nan.to(vh.dtype), vh)
+        ctx.save_for_backward(u, s, vh)
+        return u, s, vh
+
+    @staticmethod
+    def backward(ctx, du, ds, dvh):
+        u, s, vh = ctx.saved_tensors
+        dmat = svd_safe_backward(u, s, vh, du.conj(), ds, dvh.conj())
+        return dmat.conj()
+
+
+def svd_safe(mat: torch.Tensor):
+    """(u, s, vh) of [..., m, n], thin, with a backward that stays finite
+    for (near-)degenerate and zero singular values (port of
+    ``peps_tpu/linalg.py:192 svd_safe``)."""
+    return SvdSafe.apply(mat)

@@ -5,8 +5,10 @@ Layouts as in the JAX package: gammas [Ly, Lx, d, D, D, D, D] with site axes
 onehot(0)); lam_h [Ly, Lx+1, D]. Trotter gates go in the same checkerboard
 schedule: even, then odd horizontal bonds, then the two vertical
 sublattices through the transposed lattice, each group one batched
-QR -> gate -> SVD step. Batched QR/SVD run in ``torch.linalg``. The PBC
-torus groups come with ROADMAP queue 1, item 2.
+QR -> gate -> SVD step. Batched QR/SVD run in ``torch.linalg``. On the
+torus (:func:`product_peps_pbc`: lam_v and lam_h [Ly, Lx, D], every bond
+real) the groups are the site-disjoint ring-bond groups of
+:func:`_pbc_bond_groups`, the wrap bonds in a third group on odd rings.
 """
 from __future__ import annotations
 
@@ -71,6 +73,38 @@ def to_tps(peps: PEPS) -> torch.Tensor:
     mask = torch.as_tensor(boundary_mask(ly, lx, g.shape[2], g.shape[3]),
                            dtype=a.dtype, device=a.device)
     return a * mask
+
+
+def product_peps_pbc(ly: int, lx: int, bond_dim: int, occupancy,
+                     phys_dim: int, dtype=torch.float32, device=None) -> PEPS:
+    """Product-state PEPS |occupancy> on the torus: lam_v [Ly, Lx, D]
+    (lam_v[y, x] the bond above site (y, x), row 0's wrapping to the
+    bottom) and lam_h [Ly, Lx, D] (the bond left of (y, x)); the layout
+    tells the torus from the OBC state (lam_v has Ly rows, not Ly + 1)."""
+    device = resolve_device(device)
+    occ = torch.as_tensor(np.asarray(occupancy), device=device).long()
+    g = torch.zeros((ly, lx, phys_dim) + (bond_dim,) * 4, dtype=dtype,
+                    device=device)
+    g[:, :, :, 0, 0, 0, 0] = torch.nn.functional.one_hot(
+        occ, phys_dim).to(dtype)
+    lam = torch.zeros((ly, lx, bond_dim), dtype=dtype, device=device)
+    lam[..., 0] = 1.0
+    return PEPS(g, lam, lam.clone())
+
+
+def is_pbc(peps: PEPS) -> bool:
+    """True iff the state has the torus lambda layout."""
+    return peps.lam_v.shape[0] == peps.gammas.shape[0]
+
+
+def to_tps_pbc(peps: PEPS) -> torch.Tensor:
+    """Absorb sqrt(lambda) of every torus bond into the site tensors (no
+    boundary mask: every bond is real)."""
+    g, lam_v, lam_h = peps
+    su, sl = torch.sqrt(lam_v), torch.sqrt(lam_h)
+    sd = torch.roll(su, -1, dims=0)      # the bond below is above (y+1)%Ly
+    sr = torch.roll(sl, -1, dims=1)      # the bond right is left of (x+1)%Lx
+    return torch.einsum("yxpuldr,yxu,yxl,yxd,yxr->yxpuldr", g, su, sl, sd, sr)
 
 
 def _transpose_peps(peps: PEPS) -> PEPS:
@@ -164,6 +198,79 @@ def _apply_h_sublattice(peps: PEPS, xs, gate, h_bond, trunc: TruncParams):
     return PEPS(g, lam_v, lam_h), metrics
 
 
+def _pbc_bond_groups(l: int) -> list:
+    """Site-disjoint groups of the ring bonds (x, (x+1)%l): two on an even
+    ring, and on an odd ring a third holding the wrap bond alone (an odd
+    cycle is not 2-colourable)."""
+    if l < 2:
+        return []
+    if l % 2 == 0:
+        groups = [tuple(range(0, l, 2)), tuple(range(1, l, 2))]
+    else:
+        groups = [tuple(range(0, l - 1, 2)), tuple(range(1, l - 1, 2)),
+                  (l - 1,)]
+    return [g for g in groups if g]
+
+
+def _gather_h_bonds_pbc(peps: PEPS, xs):
+    """Batch inputs for the torus bonds (y, x)-(y, (x+1)%Lx), x in xs."""
+    g, lam_v, lam_h = peps
+    lx, D = g.shape[1], g.shape[3]
+    xs = torch.as_tensor(xs, device=g.device)
+    x1, x2 = (xs + 1) % lx, (xs + 2) % lx
+    lam_v_dn = torch.roll(lam_v, -1, dims=0)     # the bond below each site
+    gA = g[:, xs].reshape(-1, *g.shape[2:])
+    gB = g[:, x1].reshape(-1, *g.shape[2:])
+    return (gA, gB, lam_v[:, xs].reshape(-1, D), lam_h[:, xs].reshape(-1, D),
+            lam_v_dn[:, xs].reshape(-1, D), lam_v[:, x1].reshape(-1, D),
+            lam_v_dn[:, x1].reshape(-1, D), lam_h[:, x2].reshape(-1, D),
+            lam_h[:, x1].reshape(-1, D))
+
+
+def _apply_h_sublattice_pbc(peps: PEPS, xs, gate, h_bond, trunc: TruncParams):
+    """Gates on the torus bonds of one site-disjoint ring group xs
+    (:func:`_pbc_bond_groups`); gate/h_bond [Ly, Lx, d, d, d, d], bond x
+    joining (y, x) and (y, (x+1)%Lx)."""
+    g, lam_v, lam_h = peps
+    ly, lx, d = g.shape[0], g.shape[1], g.shape[2]
+    xs_t = torch.as_tensor(xs, device=g.device)
+    x1 = (xs_t + 1) % lx
+    gate_b = gate[:, xs_t].reshape(-1, d, d, d, d)
+    h_b = h_bond[:, xs_t].reshape(-1, d, d, d, d)
+    ga, gb, lam_new, metrics = _apply_gate_batch(
+        *_gather_h_bonds_pbc(peps, xs), gate_b, h_b, trunc)
+    nb = len(xs)
+    g = g.clone()
+    lam_h = lam_h.clone()
+    g[:, xs_t] = ga.reshape(ly, nb, *g.shape[2:])
+    g[:, x1] = gb.reshape(ly, nb, *g.shape[2:])
+    lam_h[:, x1] = lam_new.reshape(ly, nb, -1).to(lam_h.dtype)
+    return PEPS(g, lam_v, lam_h), metrics
+
+
+def simple_update_sweep_pbc(peps: PEPS, gate_h, gate_v, h_bond_h, h_bond_v,
+                            trunc: TruncParams):
+    """One torus sweep: the ring-bond groups of every row, then (through
+    the transposed lattice) of every column; gate_v/h_bond_v in the
+    transposed frame [Lx, Ly, ...]. Returns (peps', (e_sum, log_norm, max
+    trunc_err))."""
+    rdt = peps.gammas.real.dtype
+    dev = peps.gammas.device
+    e_sum = torch.zeros((), dtype=rdt, device=dev)
+    log_norm = torch.zeros((), dtype=rdt, device=dev)
+    terr = torch.zeros((), dtype=rdt, device=dev)
+    for frame, (gate, hb) in enumerate(((gate_h, h_bond_h),
+                                        (gate_v, h_bond_v))):
+        if frame == 1:
+            peps = _transpose_peps(peps)
+        for xs in _pbc_bond_groups(peps.lx):
+            peps, m = _apply_h_sublattice_pbc(peps, xs, gate, hb, trunc)
+            e_sum = e_sum + m.bond_energy.sum()
+            log_norm = log_norm + m.log_norm
+            terr = torch.maximum(terr, m.trunc_err)
+    return _transpose_peps(peps), (e_sum, log_norm, terr)
+
+
 def simple_update_sweep(peps: PEPS, gate_h, gate_v, h_bond_h, h_bond_v,
                         trunc: TruncParams):
     """One checkerboard sweep; gate_v/h_bond_v in the transposed frame
@@ -244,33 +351,37 @@ def run_with_stall_stop(peps, params: SimpleUpdateParams, one_step,
 def simple_update(peps: PEPS, h_bond_h, h_bond_v, params: SimpleUpdateParams,
                   step_observer: Callable | None = None
                   ) -> SimpleUpdateResult:
-    """Imaginary-time evolution (OBC). h_bond_h: [d,d,d,d] uniform or
-    [Ly, Lx-1, d,d,d,d] per bond; h_bond_v: [d,d,d,d] or [Ly-1, Lx, ...]
+    """Imaginary-time evolution. h_bond_h: [d,d,d,d] uniform or per bond
+    [Ly, Lx-1, d,d,d,d] (OBC) / [Ly, Lx, ...] (torus, bond x wrapping to
+    (x+1)%Lx); h_bond_v: [d,d,d,d] or [Ly-1, Lx, ...] / [Ly, Lx, ...]
     (numpy arrays or tensors; :func:`fold_site_into_bonds` absorbs a
-    one-site term). step_observer(step=, e0=, en=, trunc_err=) is called
-    after each step; the energy-stall stop is the reference's
+    one-site term on the open lattice). A torus state
+    (:func:`product_peps_pbc`, told by its lambda layout) takes the torus
+    sweep. step_observer(step=, e0=, en=, trunc_err=) is called after each
+    step; the energy-stall stop is the reference's
     (``SimpleUpdateParams``)."""
-    if peps.lam_v.shape[0] == peps.gammas.shape[0]:
-        raise NotImplementedError("PBC simple update: ROADMAP queue 1, item 2")
     d, ly, lx = peps.phys_dim, peps.ly, peps.lx
+    pbc = is_pbc(peps)
+    nhx, nvy = (lx, ly) if pbc else (lx - 1, ly - 1)
     dt, dev = peps.gammas.dtype, peps.gammas.device
     hh, hv = (torch.as_tensor(h if isinstance(h, torch.Tensor)
                               else np.asarray(h), dtype=dt, device=dev)
               for h in (h_bond_h, h_bond_v))
     if hh.ndim == 4:
-        hh = hh.expand(ly, lx - 1, d, d, d, d)
+        hh = hh.expand(ly, nhx, d, d, d, d)
     if hv.ndim == 4:
-        hv = hv.expand(ly - 1, lx, d, d, d, d)
+        hv = hv.expand(nvy, lx, d, d, d, d)
     tau = params.tau
     gate_h = expm_taylor(-tau * hh.reshape(-1, d * d, d * d)) \
-        .reshape(ly, lx - 1, d, d, d, d)
+        .reshape(ly, nhx, d, d, d, d)
     gate_v = expm_taylor(-tau * hv.reshape(-1, d * d, d * d)) \
-        .reshape(ly - 1, lx, d, d, d, d)
+        .reshape(nvy, lx, d, d, d, d)
     hv_t = hv.permute(1, 0, 2, 3, 4, 5)
     gate_v_t = gate_v.permute(1, 0, 2, 3, 4, 5)
+    sweep = simple_update_sweep_pbc if pbc else simple_update_sweep
 
     def one_step(p):
-        p, (e0, log_norm, terr) = simple_update_sweep(
+        p, (e0, log_norm, terr) = sweep(
             p, gate_h, gate_v_t, hh, hv_t, params.trunc)
         return p, e0, log_norm, terr
 

@@ -177,3 +177,23 @@ def exact_amplitude(tps, config):
     ly, lx = config.shape
     tn = tps[np.arange(ly)[:, None], np.arange(lx)[None, :], config]
     return exact_contract(tn)
+
+
+def exact_contract_pbc(tn: np.ndarray):
+    """Exactly contract a small torus network [Ly, Lx, u, l, d, r] (u of
+    (y, x) meets d of (y-1 mod Ly, x), l meets r of (y, x-1 mod Lx)): the
+    row transfer matrices over the vertical-bond product space, each row's
+    horizontal ring traced, then the trace of their product. The torus
+    oracle; exponential in Lx."""
+    tn = np.asarray(tn)
+    ly, lx, D = tn.shape[0], tn.shape[1], tn.shape[2]
+    total = None
+    for y in range(ly):
+        w = np.moveaxis(tn[y, 0], 1, 0)                 # [l0, u0, d0, r0]
+        for x in range(1, lx):
+            w = np.tensordot(w, tn[y, x], axes=([-1], [1]))
+        w = np.trace(w, axis1=0, axis2=w.ndim - 1)      # close the ring
+        perm = list(range(0, 2 * lx, 2)) + list(range(1, 2 * lx, 2))
+        w = np.transpose(w, perm).reshape(D ** lx, D ** lx)
+        total = w if total is None else total @ w
+    return np.trace(total)

@@ -839,6 +839,62 @@ def test_fermion_dress_equals_plain_exactly(dev, dtype):
         assert torch.equal(out.cpu(), ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
+@pytest.mark.parametrize("D", [2, 3, 5, 8])
+def test_fermion_dress_layouts_equal_plain_exactly(dev, dtype, D):
+    """K4 against its plain version, bit for bit, on every layout the
+    wrapper takes: a shared and a per-chain tps, non-contiguous outer
+    strides, a stride-0 physical axis, the projection and the candidates,
+    f0 = 1 with nf = 1, and a tps whose slabs are not 16-byte aligned (the
+    value-by-value path; odd D takes it too)."""
+    from peps_tpu_torch.fermion.convert import dress_tables
+    from peps_tpu_torch.fermion.peps import FermionSpace
+    from peps_tpu_torch.kernels import fermion_dress as k4
+    gen = torch.Generator().manual_seed(D)
+    ly, lx, d, nc = (3, 3, 3, 5) if D < 8 else (3, 2, 3, 4)
+    tab = dress_tables(FermionSpace((0, 1, 1), (D + 1) // 2, D // 2), ly, lx)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen,
+                           dtype=torch.float64).to(dtype)
+
+    tps = r(ly, lx, d, D, D, D, D)
+    per = r(nc, ly, lx, d, D, D, D, D)
+    strided = r(nc, ly + 1, lx, d + 1, D, D, D, D)[:, 1:, :, 1:]
+    wide = r(nc, ly, lx, D, D, D, D).unsqueeze(3).expand(
+        -1, -1, -1, d, -1, -1, -1, -1)
+    odd = r(ly * lx * d * D ** 4 + 1)[1:].reshape(ly, lx, d, D, D, D, D)
+    cfg = torch.randint(0, d, (nc, ly, lx), generator=gen)
+    cases = ((tps, {"select_config": True}), (tps, {"y0": 1, "ny": 1}),
+             (tps, {}), (per, {"select_config": True, "f0": 1, "nf": 1}),
+             (per, {"y0": 0, "ny": 2}), (strided, {"select_config": True}),
+             (strided, {"y0": 2, "ny": 1, "nf": 1}),
+             (wide, {"select_config": True, "nf": 1}),
+             (odd, {"y0": 1, "ny": 2}))
+    for t, kw in cases:
+        before = k4.fermion_dress.launches
+        out = k4.fermion_dress(t.to(dev), cfg.to(dev), tab, **kw)
+        assert k4.fermion_dress.launches == before + 1
+        assert torch.equal(out.cpu(), k4.fermion_dress_plain(t, cfg, tab,
+                                                              **kw)), kw
+
+
+def test_fermion_dress_refuses_what_it_cannot_take(dev):
+    """A bond dimension past 64 and a flag range past 2 raise before any
+    launch."""
+    from peps_tpu_torch.fermion.convert import dress_tables
+    from peps_tpu_torch.fermion.peps import FermionSpace
+    from peps_tpu_torch.kernels import fermion_dress as k4
+    tab = dress_tables(FermionSpace((0, 1, 1), 1, 1), 2, 2)
+    cfg = torch.zeros(1, 2, 2, dtype=torch.int64, device=dev)
+    before = k4.fermion_dress.launches
+    with pytest.raises(ValueError):
+        k4.fermion_dress(torch.zeros(2, 2, 3, 2, 2, 2, 2, device=dev), cfg,
+                         tab, f0=1, nf=2)
+    assert k4.fermion_dress.launches == before
+
+
 # ---------------------------------------------------------- K1 backward
 
 

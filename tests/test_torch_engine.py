@@ -111,6 +111,8 @@ def test_bonds_and_transpose_lattice():
     assert np.array_equal(out.numpy(),
                           np.asarray(j_lattice.transpose_lattice(
                               jnp.asarray(tn))))
-    for fn in (lattice.nn_bonds_h, lattice.nn_bonds_v):
-        with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-            fn(2, 3, lattice.BoundaryCondition.PERIODIC)
+    for fn, jfn in ((lattice.nn_bonds_h, j_lattice.nn_bonds_h),
+                    (lattice.nn_bonds_v, j_lattice.nn_bonds_v)):
+        for ly, lx in ((2, 3), (3, 3)):
+            assert fn(ly, lx, lattice.BoundaryCondition.PERIODIC) == \
+                jfn(ly, lx, j_lattice.BoundaryCondition.PERIODIC)

@@ -154,3 +154,56 @@ def test_dressed_contraction_equals_exact_coefficients(shape):
                                 TruncParams(16, 1, 0.0))
     assert np.abs((mant * torch.exp(logw)).numpy() - ref[::97]).max() \
         < 1e-12 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("nb,slabs,per_slab", [
+    (32, 36, 1024), (32, 18, 4096), (1, 36, 4096), (2, 9, 81),
+    (3, 100000, 1024), (1, 1, 1)])
+def test_work_units_cover_every_vector(nb, slabs, per_slab):
+    """K4's work units: whole passes a unit, every vector of every slab in
+    exactly one unit, whole slabs where the slabs fill the card, at most
+    65535 CTAs a chain (the kernel takes the rest round-robin)."""
+    from peps_tpu_torch.kernels import fermion_dress as k4
+    splits, chunk = k4.work_units(nb, slabs, per_slab)
+    assert chunk % k4.PASS_VECTORS == 0 and 1 <= splits <= 65535
+    units = slabs * -(-per_slab // chunk)
+    assert splits == min(units, 65535)
+    assert -(-per_slab // chunk) * chunk >= per_slab > (
+        -(-per_slab // chunk) - 1) * chunk
+    if nb * slabs >= k4.TARGET_CTAS:
+        assert chunk >= per_slab
+
+
+def test_launch_args_meta():
+    """The launch meta the wrapper packs for the card, read back on CPU
+    tensors: a shared tps has chain stride 0, a per-chain one its own;
+    16-byte-aligned slabs take the vector path and a misaligned view the
+    value path; the output has the documented shape."""
+    from peps_tpu_torch.fermion.convert import dress_tables
+    from peps_tpu_torch.fermion.peps import FermionSpace
+    from peps_tpu_torch.kernels import fermion_dress as k4
+    tab = dress_tables(FermionSpace((0, 1, 1), 2, 2), 3, 2)
+    cfg = torch.zeros(4, 3, 2, dtype=torch.int32)
+    fields = ("nb", "ly", "lx", "d", "D", "y0", "ny", "select", "f0", "nf",
+              "sb", "sy", "sx", "sa", "pp_mask", "bp_mask", "splits", "vec",
+              "chunk")
+    shared = torch.zeros(3, 2, 3, 4, 4, 4, 4)
+    per = torch.zeros(4, 3, 2, 3, 4, 4, 4, 4)
+    odd = torch.zeros(3 * 2 * 3 * 256 + 1)[1:].reshape(3, 2, 3, 4, 4, 4, 4)
+    for t, kw, want in (
+            (shared, {}, {"sb": 0, "vec": 1, "select": 0, "nf": 2}),
+            (per, {"select_config": True, "nf": 1},
+             {"sb": 3 * 2 * 3 * 256, "vec": 1, "select": 1, "nf": 1}),
+            (odd, {"y0": 1, "ny": 2, "f0": 1, "nf": 1},
+             {"vec": 0, "y0": 1, "ny": 2, "f0": 1})):
+        kw = {"y0": 0, "ny": None, "select_config": False, "f0": 0,
+              "nf": 2, **kw}
+        _, c, _, out, meta = k4.launch_args(t, cfg, tab, **kw)
+        m = dict(zip(fields, k4._META.unpack(meta)))
+        assert c.dtype == torch.int64 and c.is_contiguous()
+        assert m["pp_mask"] == 0b110 and m["D"] == 4 and m["d"] == 3
+        for k, v in want.items():
+            assert m[k] == v, (k, m[k], v)
+        ny = 3 - kw["y0"] if kw["ny"] is None else kw["ny"]
+        na = 1 if kw["select_config"] else 3
+        assert tuple(out.shape) == (4, ny, 2, na, kw["nf"], 4, 4, 4, 4)

@@ -210,10 +210,13 @@ def test_exact_sum_energy_gradient_and_evaluation(grad_case):
     assert abs(float(evo.energy) - float(ev.energy)) < RTOL * abs(float(ev.energy))
     for name in ("gradient", "o_samples", "e_samples"):
         assert rel(getattr(evo, name), getattr(ev, name)) < RTOL, name
-    with pytest.raises(NotImplementedError, match="item 11"):
-        from peps_tpu_torch.lattice import BoundaryCondition
-        exact_sum.exact_sum_energy_gradient(tt, configs[:2], spin.heisenberg(),
-                                            chi, pt, bc=BoundaryCondition.PERIODIC)
+    # the torus exact sum runs now: the OBC-masked state, contracted as a
+    # torus (its wrap bonds carry index 0 only), has the OBC amplitudes
+    from peps_tpu_torch.lattice import BoundaryCondition
+    tor = exact_sum.exact_sum_energy_gradient(
+        tt, configs, spin.heisenberg(), 16, TruncParams(16, 1, 0.0),
+        with_grad=False, bc=BoundaryCondition.PERIODIC, mask=mask)
+    assert abs(float(tor.weight_sum) / float(eg.weight_sum) - 1) < 1e-8
     with pytest.raises(NotImplementedError, match="the port takes bosonic"):
         exact_sum.exact_sum_energy_gradient(tt, configs[:2], object(), chi, pt)
 
@@ -378,7 +381,7 @@ def test_measure_rejects_what_the_port_lacks():
     from peps_tpu_torch.lattice import BoundaryCondition
     for params in (measure.MeasurementParams(),
                    measure.MeasurementParams(measure_pair_corr=True)):
-        with pytest.raises(NotImplementedError, match="11-12"):
+        with pytest.raises(NotImplementedError, match="item 12"):
             measure.measure(tps, spin.heisenberg(), params, 2, tp,
                             UpdateRule(), cfg, bc=BoundaryCondition.PERIODIC)
     with pytest.raises(NotImplementedError, match="the port takes bosonic"):
