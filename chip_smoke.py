@@ -201,6 +201,18 @@ Each phase ends with a phase_end line holding its wall seconds.
      in float64, both schemes at chi=16, against exact_contract_pbc within
      1e-10. No hand kernel lies on the torus path (its products and
      factorizations are torch's); the phase prints the launch counters.
+ 13. pbc_sampler (the torus sampler, pbc_sampler lines): (a)
+     vmc_optimize(bc=PERIODIC) from phase 12's state at
+     examples/heisenberg_pbc_vmc.py's width (8 chains, SR by CG 60, lr
+     0.1; 2 warm-up sweeps, 4 samples, 3 iterations): seconds an
+     iteration, E/site in (-0.75, -0.60), acceptance in (0, 1), Sz kept,
+     K2 launched (it writes the torus SR buffer); (b) measure(bc=PERIODIC)
+     of the result (8 chains, 2 warm-up sweeps, 8 samples): samples/s,
+     |sum <Sz>| < 1e-5, nearest-neighbour <SzSz> < 0; (c) one sweep of 8
+     and of 32 chains under the full recompute, the frozen and the exact
+     trial sweeps (chain-sweeps/s), and the frozen sweep equal to the full
+     one at 4x4 D=2 chi=16 in float64; (d) float64 card against CPU of one
+     mc_energy_grad of 2 chains under both samplers.
 Phase 2 also holds K5 (bmps_overlap, kernels_fermion lines) at the column
 walker's per-k shape (8 configurations x 5 start bonds x 6 columns x 4
 closures, Lx=6, chi=32, D=8, b broadcast over the start bonds) in all four
@@ -321,15 +333,29 @@ FMEAS = {"warmup": 2, "samples": 4, "chunk": 2, "env_chunk": 8,
 PBC = {"L": 4, "D": 3, "chi": 12, "su": ((40, 0.2), (40, 0.05)),
        "nconf": (8, 32), "svd_nconf": (8, 32), "card_cpu_nconf": 8}
 TFIM_PBC = {"L": 2, "D": 2, "chi": 16, "iters": 20, "cg": 200, "lr": 0.1}
+# phase 13 (pbc_sampler): examples/heisenberg_pbc_vmc.py's torus VMC and
+# measure() from phase 12's state at the example's width (8 chains, half
+# filling, exchange rule, SR by CG 60, lr 0.1): 2 warm-up sweeps, 4 samples
+# and 3 iterations where the example runs 20, 16 and 40; measure() with 2
+# warm-up sweeps and 8 samples where it runs 20 and 48. Sweep rates at 8
+# and 32 chains; the samplers' equality at 4x4 D=2 chi=16 (no truncation)
+# in float64; card against CPU with 4 chains in float64.
+PBC_SAMPLER = {"nchains": 8, "warmup": 2, "samples": 4, "iters": 3,
+               "cg": 60, "lr": 0.1, "measure_warmup": 2,
+               "measure_samples": 8, "sweep_chains": (8, 32),
+               "equal": {"D": 2, "chi": 16}, "card_cpu_chains": 4}
 HBM_BPS = 3.35e12          # H100 SXM device memory rate (data sheet)
 EINSUM_1CALL = "...alc,...auA,...uldr,...cdC->...ArC"
 EINSUM_K3 = "...amnc,...auA,...umdr,...dnef,...ceC->...ArfC"
 # K2 cases: (name, Ns, sites, K, dtypes, check on the first and last site
 # only). The stretch run is examples/stretch_heisenberg.py's 12x12 D=10 with
 # 32 chains x 8 samples; 16x16 D=12 at 256 samples is past 2^31 elements.
+# The torus case is phase 13 (a)'s SR buffer: 8 chains x 4 samples of the
+# 4x4 D=3 torus.
 K2_CASES = (
     ("main_path_8x8_D8", NCHAINS, LY * LX, D ** 4, ("float32", "float64"),
      False),
+    ("torus_4x4_D3", 32, 16, 3 ** 4, ("float32", "float64"), False),
     ("stretch_12x12_D10", 256, 144, 10 ** 4, ("float32", "float64"), False),
     ("big_16x16_D12", 256, 256, 12 ** 4, ("float32",), True),
 )
@@ -3582,7 +3608,7 @@ def pbc_contract_exact(device):
 def phase_pbc(device):
     """Phase 12: the torus ((a)-(e) above). Returns the launches of every
     hand kernel over the phase (the torus runs on torch's products and
-    factorizations alone)."""
+    factorizations alone) and (a)'s state, which phase 13 samples."""
     totals = {}
 
     def add(counts):
@@ -3599,7 +3625,286 @@ def phase_pbc(device):
     pbc_contract_exact(device)
     add(read())
     log("pbc", step="launches", launches=totals)
-    return totals
+    return totals, tps
+
+
+def _torus_setup():
+    """Phase 13's model, chi, truncation (the example's) and boundary."""
+    from peps_tpu_torch.lattice import BoundaryCondition
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.models import spin
+    chi = PBC["chi"]
+    return (spin.heisenberg(1.0), chi,
+            TruncParams(chi, 1, 1e-6, scheme="fast", rsvd_power=1),
+            BoundaryCondition.PERIODIC)
+
+
+def pbc_sampler_vmc(tps, device):
+    """Phase 13 (a): vmc_optimize(bc=PERIODIC) from phase 12's state (see
+    PBC_SAMPLER): seconds of each iteration (the first also holds the
+    state normalization and the warm-up), E/site of each iteration in
+    (-0.75, -0.60) (the SU estimate of the state is -0.667, the 4x4 torus
+    ED -0.7018), acceptance in (0, 1), Sz kept in every chain, K2
+    launched. Returns (final state, launches)."""
+    import torch
+    from peps_tpu_torch.algorithm.mc_evaluator import MCParams
+    from peps_tpu_torch.algorithm.vmc_optimize import VMCParams, vmc_optimize
+    from peps_tpu_torch.montecarlo.sweep import UpdateRule
+    from peps_tpu_torch.optimizer.cg import CGParams
+    from peps_tpu_torch.optimizer.optimizer import OptimizerParams, SRParams
+    p, L = PBC_SAMPLER, PBC["L"]
+    model, chi, trunc, bc = _torus_setup()
+    params = VMCParams(
+        chi, trunc, MCParams(num_samples=p["samples"],
+                             num_warmup_sweeps=p["warmup"],
+                             nchains=p["nchains"]),
+        OptimizerParams(p["iters"], SRParams(CGParams(p["cg"], 1e-5),
+                                             diag_shift=1e-3), lr=p["lr"]),
+        rule=UpdateRule("exchange"),
+        occupancy=((0, L * L // 2), (1, L * L - L * L // 2)), bc=bc)
+    stamps = []
+
+    def observe(rec, state):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    read = fermion_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = vmc_optimize(tps, model, params, generator=gen, callback=observe)
+    torch.cuda.synchronize()
+    launches = read()
+    seconds = [b - a for a, b in zip([t0] + stamps, stamps)]
+    e_site = [e / L ** 2 for e in res.energies]
+    accept = [r.accept_rate for r in res.records]
+    sz = res.final_configs.sum((1, 2)).tolist()
+    log("pbc_sampler", step="vmc", lattice=[L, L], D=PBC["D"], chi=chi,
+        dtype=str(tps.dtype).replace("torch.", ""), nchains=p["nchains"],
+        warmup_sweeps=p["warmup"], samples=p["samples"],
+        iterations=len(res.energies), energies_per_site=e_site,
+        energy_errors=[r.energy_error for r in res.records],
+        accept_rates=accept, sr_iters=[r.sr_iters for r in res.records],
+        eval_seconds=[r.eval_seconds for r in res.records],
+        update_seconds=[r.update_seconds for r in res.records],
+        iteration_seconds=seconds,
+        seconds_per_iteration_after_first=(sum(seconds[1:])
+                                           / max(len(seconds) - 1, 1)),
+        launches=launches,
+        peak_mem_GB=torch.cuda.max_memory_allocated(device) / 1e9)
+    if not all(-0.75 < e < -0.60 for e in e_site):
+        fail(f"pbc VMC: E/site {e_site} outside (-0.75, -0.60)")
+    if not all(0 < a < 1 for a in accept):
+        fail(f"pbc VMC: acceptance {accept} outside (0, 1)")
+    if sz != [L * L // 2] * p["nchains"]:
+        fail(f"pbc VMC: the chains' particle counts {sz} moved")
+    if launches["centered_o"] == 0:
+        fail("pbc VMC: the SR buffer did not go through K2")
+    return res.state, launches
+
+
+def pbc_sampler_measure(state, device):
+    """Phase 13 (b): measure(bc=PERIODIC) of the optimized state: 8 chains
+    (PBC_SAMPLER), samples/s and sampling_wall_s; E/site in (-0.75, -0.60)
+    as in (a), |sum <Sz>| < 1e-5 and the nearest-neighbour <SzSz> of the
+    torus below 0."""
+    import torch
+    from peps_tpu_torch.algorithm.measure import MeasurementParams, measure
+    from peps_tpu_torch.montecarlo.engine import init_configs_occupancy
+    from peps_tpu_torch.montecarlo.sweep import UpdateRule
+    p, L = PBC_SAMPLER, PBC["L"]
+    model, chi, trunc, bc = _torus_setup()
+    gen = torch.Generator(device=device).manual_seed(14)
+    cfgs = init_configs_occupancy(gen, p["nchains"], L, L,
+                                  {0: L * L // 2, 1: L * L - L * L // 2},
+                                  device)
+    mp = MeasurementParams(num_samples=p["measure_samples"],
+                           num_warmup_sweeps=p["measure_warmup"],
+                           nchains=p["nchains"], measure_offdiag_corr=False)
+    read = fermion_counters()
+    t0 = time.perf_counter()
+    out = measure(state, model, mp, chi, trunc, UpdateRule("exchange"), cfgs,
+                  generator=gen, bc=bc)
+    seconds = time.perf_counter() - t0
+    szsz = out.stats["szsz"][0]
+    nn = [szsz[y * L + x, y * L + (x + 1) % L] for y in range(L)
+          for x in range(L)]
+    nn += [szsz[y * L + x, ((y + 1) % L) * L + x] for y in range(L)
+           for x in range(L)]
+    nn_szsz = float(sum(nn) / len(nn))
+    sz_sum = float(out.stats["sz"][0].sum())
+    e, err = out.stats["energy"]
+    n = p["measure_samples"] * p["nchains"]
+    log("pbc_sampler", step="measure", nchains=p["nchains"],
+        warmup_sweeps=p["measure_warmup"], samples=p["measure_samples"],
+        seconds=seconds, sampling_wall_s=out.sampling_wall_s,
+        samples_per_s=n / out.sampling_wall_s,
+        energy_per_site=float(e) / L ** 2,
+        energy_error_per_site=float(err) / L ** 2,
+        accept_rate=out.accept_rate, sz_sum=sz_sum, nn_szsz=nn_szsz,
+        observables=sorted(out.stats), launches=read())
+    if not -0.75 < float(e) / L ** 2 < -0.60:
+        fail(f"pbc measure: E/site {float(e) / L ** 2} outside (-0.75, -0.60)")
+    if not abs(sz_sum) < 1e-5:
+        fail(f"pbc measure: sum <Sz> = {sz_sum}")
+    if not nn_szsz < 0:
+        fail(f"pbc measure: nearest-neighbour <SzSz> = {nn_szsz}")
+
+
+def pbc_sampler_sweeps(tps, device):
+    """Phase 13 (c): one sweep of 8 and of 32 chains (random Sz = 0
+    configurations) of phase 12's state under the full recompute, the
+    frozen trial and the exact trial sweeps: seconds and chain-sweeps/s
+    each. Then, in float64 at 4x4 D=2 chi=16 (no truncation), the frozen
+    and the full sweeps of 8 chains from the same uniforms reach the same
+    configurations."""
+    import torch
+    from peps_tpu_torch.lattice import BoundaryCondition
+    from peps_tpu_torch.linalg import TruncParams
+    from peps_tpu_torch.montecarlo.engine import init_configs_occupancy
+    from peps_tpu_torch.montecarlo.sweep import UpdateRule
+    from peps_tpu_torch.montecarlo.sweep_pbc import (draw_uniforms_pbc,
+                                                     mc_sweep_pbc,
+                                                     mc_sweep_pbc_trial)
+    from peps_tpu_torch.tps import random_tps
+    L = PBC["L"]
+    _, chi, trunc, _ = _torus_setup()
+    gen = torch.Generator(device=device).manual_seed(15)
+    half = {0: L * L // 2, 1: L * L - L * L // 2}
+    rule = UpdateRule("exchange")
+    samplers = {
+        "full": lambda t, c, u, x, tr: mc_sweep_pbc(t, c, x, tr, rule, u),
+        "frozen": lambda t, c, u, x, tr: mc_sweep_pbc_trial(t, c, x, tr, rule,
+                                                            u),
+        "exact": lambda t, c, u, x, tr: mc_sweep_pbc_trial(t, c, x, tr, rule,
+                                                           u, exact=True)}
+    rates = {}
+    for nc in PBC_SAMPLER["sweep_chains"]:
+        cfg = init_configs_occupancy(gen, nc, L, L, half, device)
+        u = draw_uniforms_pbc(gen, nc, L, L, tps.dtype, device)
+        for name, sweep in samplers.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            out, st = sweep(tps, cfg, u, chi, trunc)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            rates[f"{name}_{nc}"] = nc / sec
+            log("pbc_sampler", step="sweep", sampler=name, nchains=nc,
+                chi=chi, dtype=str(tps.dtype).replace("torch.", ""),
+                seconds=sec, chain_sweeps_per_s=nc / sec,
+                accept_rate=float(st.accepted.sum()
+                                  / st.trials.sum().clamp(min=1)),
+                peak_mem_GB=torch.cuda.max_memory_allocated(device) / 1e9)
+            if not torch.equal(out.sum((1, 2)), cfg.sum((1, 2))):
+                fail(f"pbc {name} sweep moved the particle count")
+    q = PBC_SAMPLER["equal"]
+    t64 = random_tps(torch.Generator(device=device).manual_seed(16), L, L, 2,
+                     q["D"], dtype=torch.float64,
+                     bc=BoundaryCondition.PERIODIC, scale=0.5, device=device)
+    cfg = init_configs_occupancy(gen, 8, L, L, half, device)
+    u = draw_uniforms_pbc(gen, 8, L, L, torch.float64, device)
+    tr = TruncParams(q["chi"], 1, 0.0, scheme="fast", rsvd_power=1)
+    full, fst = samplers["full"](t64, cfg, u, q["chi"], tr)
+    frozen, tst = samplers["frozen"](t64, cfg, u, q["chi"], tr)
+    same = bool(torch.equal(full, frozen)
+                and torch.equal(fst.accepted, tst.accepted))
+    log("pbc_sampler", step="frozen_equals_full", lattice=[L, L], D=q["D"],
+        chi=q["chi"], dtype="float64", equal=same,
+        accepted=int(fst.accepted.sum()))
+    if not same or int(fst.accepted.sum()) == 0:
+        fail("pbc sweeps: the frozen trial sweep left the full recompute's "
+             "trajectories at a chi that does not truncate")
+    return rates
+
+
+def pbc_sampler_card_vs_cpu(tps, device):
+    """Phase 13 (d): one mc_energy_grad(bc=PERIODIC) with SR buffers of 4
+    chains (one sample, one sweep) of phase 12's state in float64 on the
+    card and on the CPU from the same uniforms, under both samplers: the
+    same configurations; the energy and the scaled energies within 1e-8;
+    each chain's O (holes over the mantissa, evaluated again at the
+    returned configurations) and the gradient within 1e-8. The frozen
+    sweep can leave a chain at a configuration of negligible weight (in
+    this draw one chain at log|psi| -28.9, the others at -7.4 and 0.03;
+    the full recompute does not go there), where O is ill-conditioned and
+    the two sides agree only to about 2.5e-8: a chain more than 10
+    e-folds below the step's largest |psi| is held to 1e-6 in its O, and
+    the gradient, which its O then rules, is held over the other chains
+    instead: 2 Re sum O (E_loc - mean E_loc) from their O and local
+    energies, within 1e-8 (at least two such chains, with different
+    energies). Logs each chain's configuration, log|psi| and errors."""
+    import torch
+    from peps_tpu_torch.algorithm.energy import ModelTensors
+    from peps_tpu_torch.algorithm.energy_pbc import pbc_energy_and_holes
+    from peps_tpu_torch.algorithm.mc_evaluator import MCParams, mc_energy_grad
+    from peps_tpu_torch.montecarlo.engine import init_configs_occupancy
+    from peps_tpu_torch.montecarlo.sweep_pbc import draw_uniforms_pbc
+    L, nc = PBC["L"], PBC_SAMPLER["card_cpu_chains"]
+    model, chi, trunc, bc = _torus_setup()
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(17)
+    cfg = init_configs_occupancy(gen, nc, L, L,
+                                 {0: L * L // 2, 1: L * L - L * L // 2}, cpu)
+    u = draw_uniforms_pbc(gen, nc, L, L, torch.float64, cpu)
+    errs, ok = {}, True
+    for trial in (False, True):
+        out = []
+        for where in (device, cpu):
+            mt = ModelTensors.from_model(model, torch.float64, where)
+            t = tps.double().to(where)
+            ev, cfgs, _ = mc_energy_grad(
+                t, cfg.to(where), mt, chi, trunc,
+                MCParams(num_samples=1, nchains=nc, trial_sweep=trial),
+                lambda: u.to(where), with_sr_buffers=True, bc=bc)
+            e_loc, holes, mant, log_psi = pbc_energy_and_holes(t, cfgs, mt,
+                                                               chi, trunc)
+            o = (holes / mant[:, None, None, None, None, None, None]) \
+                .reshape(nc, -1)
+            out.append((ev, cfgs.cpu(), o.cpu(), e_loc.cpu(), log_psi.cpu()))
+        (ev_d, c_d, o_d, e_d, _), (ev_c, c_c, o_c, e_c, log_psi) = out
+        low = log_psi < log_psi.max() - 10
+        keep = ~low
+        o_err = (o_d - o_c).norm(dim=1) / o_c.norm(dim=1)
+        e = {"configs_equal": bool(torch.equal(c_d, c_c)),
+             "configs": c_c.reshape(nc, -1).tolist(),
+             "log_psi": log_psi.tolist(),
+             "energy": abs(float(ev_d.energy) - float(ev_c.energy))
+             / abs(float(ev_c.energy)),
+             "e_samples": _rel_diff(ev_d.e_samples.cpu(), ev_c.e_samples),
+             "o_rows": o_err.tolist(),
+             "gradient": _rel_diff(ev_d.gradient.cpu(), ev_c.gradient)}
+        if bool(low.any()):
+            def kept_grad(o, e_loc):
+                de = e_loc[keep] - e_loc[keep].mean()
+                return 2.0 * (o[keep] * de[:, None]).sum(0)
+            e["gradient_kept_chains"] = int(keep.sum())
+            e["gradient_kept"] = _rel_diff(kept_grad(o_d, e_d),
+                                           kept_grad(o_c, e_c))
+            grad_ok = int(keep.sum()) >= 2 \
+                and float(e_c[keep].max() - e_c[keep].min()) > 0 \
+                and e["gradient_kept"] < 1e-8
+        else:
+            grad_ok = e["gradient"] < 1e-8
+        errs["trial" if trial else "full"] = e
+        o_ok = bool((o_err < torch.where(low, 1e-6, 1e-8)).all())
+        ok = ok and e["configs_equal"] and e["energy"] < 1e-8 \
+            and e["e_samples"] < 1e-8 and o_ok and grad_ok
+    log("pbc_sampler", step="card_vs_cpu", nchains=nc, chi=chi,
+        dtype="float64", errors=errs)
+    if not ok:
+        fail(f"pbc card vs CPU: {errs}")
+
+
+def phase_pbc_sampler(tps, device):
+    """Phase 13: the torus sampler ((a)-(d) above). Returns the launches of
+    every hand kernel in (a), the torus VMC (K2 writes its SR buffer)."""
+    state, launches = pbc_sampler_vmc(tps, device)
+    pbc_sampler_measure(state, device)
+    pbc_sampler_sweeps(tps, device)
+    pbc_sampler_card_vs_cpu(tps, device)
+    return launches
 
 
 def main():
@@ -3649,7 +3954,9 @@ def main():
     launches_f = timed("fermions", phase_fermions, device)
     launches_fm = timed("fermion_measure", phase_fermion_measure,
                         launches_f, device)
-    launches_pbc = timed("pbc", phase_pbc, device)
+    launches_pbc, pbc_tps = timed("pbc", phase_pbc, device)
+    launches_sampler = timed("pbc_sampler", phase_pbc_sampler, pbc_tps,
+                             device)
     graded = launches_f["graded_vmc"]
     k4 = kern["fermion"]["fermion_dress"]
     k5 = kern["fermion"]["bmps_overlap"]
@@ -3688,6 +3995,7 @@ def main():
          "launches_complex": launches_cx["centered_o"],
          "launches_fermions": graded["centered_o"],
          "launches_fermion_measure": launches_fm["centered_o"],
+         "launches_pbc_sampler": launches_sampler["centered_o"],
          **kern["centered_o"]},
         {"name": "pair_transfer", "route": "cuda",
          "source": "peps_tpu_torch/csrc/pair_transfer.cu",

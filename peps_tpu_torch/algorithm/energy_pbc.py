@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from peps_tpu_torch.algorithm.energy import EnergyHoles, ModelTensors
+from peps_tpu_torch.algorithm.energy import (EnergyHoles, ModelTensors,
+                                             o_tensor_of)
 from peps_tpu_torch.contraction.pbc import (TestMatrix, contract_pbc,
                                             punch_all_holes_pbc)
 from peps_tpu_torch.linalg import TruncParams
@@ -38,8 +39,10 @@ def _bond_tables_pbc(tps, tn, bonds, chi: int, trunc: TruncParams,
     """Amplitude tables [nc, Nb, d, d] of the two-site replacements on the
     bonds [Nb, 4]: entry (p, q) is the mantissa of tn with site 1 set to
     tps[y1, x1, p] and site 2 to tps[y2, x2, q], brought to the largest
-    log-weight of its bond (ratios within a bond cancel the shared scale).
-    Every (chain, bond, p, q) network goes through one contraction."""
+    log-weight of its bond (ratios within a bond cancel the shared scale;
+    the largest finite one, so that a non-finite entry does not take its
+    bond's other entries with it). Every (chain, bond, p, q) network goes
+    through one contraction."""
     nc, ly, lx = tn.shape[:3]
     d = tps.shape[2]
     nb = bonds.shape[0]
@@ -53,24 +56,28 @@ def _bond_tables_pbc(tps, tn, bonds, chi: int, trunc: TruncParams,
     net[ib, y2, x2] = tps[y2, x2][:, None, None, :]
     net = net.permute(3, 0, 4, 5, 1, 2, 6, 7, 8, 9)
     mant, logw = contract_pbc(net, chi, trunc, test_matrix=test_matrix)
-    lmax = logw.reshape(nc, nb, d * d).amax(-1)[..., None, None]
+    lw = torch.where(torch.isfinite(logw), logw,
+                     torch.full_like(logw, float("-inf")))
+    lmax = lw.reshape(nc, nb, d * d).amax(-1)[..., None, None]
     return mant * torch.exp(logw - lmax).to(mant.dtype)
 
 
-def local_energy_and_holes_pbc(tps: torch.Tensor, config: torch.Tensor,
-                               model: ModelTensors, chi: int,
-                               trunc: TruncParams, with_holes: bool = True,
-                               test_matrix: TestMatrix | None = None
-                               ) -> EnergyHoles:
-    """E_loc, O, log|psi| and the mantissa of configurations [nc, Ly, Lx]
-    of a torus TPS [Ly, Lx, d, D, D, D, D] (real; the holes are autograd
-    of a real mantissa). One-site terms from the holes, two-site terms
-    (h_h, h_v, h_d, h_ad on the torus bonds) from the batched
-    recomputes. Without holes and one-site terms the network is only
-    contracted (the reference punches the holes all the same)."""
+def pbc_energy_and_holes(tps: torch.Tensor, config: torch.Tensor,
+                         model: ModelTensors, chi: int, trunc: TruncParams,
+                         with_holes: bool = True,
+                         test_matrix: TestMatrix | None = None):
+    """(E_loc [nc], holes [nc, Ly, Lx, u, l, d, r] or None, mantissa [nc],
+    log|psi| [nc]) of configurations [nc, Ly, Lx] of a torus TPS
+    [Ly, Lx, d, D, D, D, D] (real; the holes are autograd of a real
+    mantissa). One-site terms from the holes, two-site terms (h_h, h_v,
+    h_d, h_ad on the torus bonds) from the batched recomputes. Without
+    holes and one-site terms the network is only contracted (the reference
+    punches the holes all the same). The holes are returned with
+    with_holes; O is holes / mantissa at the configuration."""
     ly, lx, d = tps.shape[0], tps.shape[1], tps.shape[2]
     config = config.long()
     tn = project(tps, config)
+    holes = None
     if with_holes or model.h_site is not None:
         holes, mant, logw = punch_all_holes_pbc(tn, chi, trunc,
                                                 test_matrix=test_matrix)
@@ -97,12 +104,30 @@ def local_energy_and_holes_pbc(tps: torch.Tensor, config: torch.Tensor,
         psi_b = torch.gather(tables.reshape(*tables.shape[:2], d * d), 2,
                              (c1 * d + c2)[..., None])[..., 0]
         safe_b = torch.where(psi_b == 0, torch.ones_like(psi_b), psi_b)
-        e = e + (h[c1, c2] * tables / safe_b[..., None, None]).sum((1, 2, 3))
-    o_tensor = None
-    if with_holes:
-        sel = torch.nn.functional.one_hot(config, d).to(holes.dtype)
-        o_tensor = (holes / safe_mant[:, None, None, None, None, None, None]
-                    )[:, :, :, None] * sel[..., None, None, None, None]
+        # an entry the Hamiltonian does not reach adds nothing, also where
+        # its amplitude is not finite (a replaced pair whose exact
+        # amplitude vanishes, so that its Grams are round-off, can fail
+        # every Cholesky jitter in float32; ROADMAP section 3)
+        hb = h[c1, c2]
+        e = e + torch.where(hb != 0, hb * tables / safe_b[..., None, None],
+                            torch.zeros_like(tables)).sum((1, 2, 3))
     log_abs = torch.log(torch.clamp(mant.abs(), min=torch.finfo(rdt).tiny)) \
         + logw
+    return e, holes if with_holes else None, mant, log_abs
+
+
+def local_energy_and_holes_pbc(tps: torch.Tensor, config: torch.Tensor,
+                               model: ModelTensors, chi: int,
+                               trunc: TruncParams, with_holes: bool = True,
+                               test_matrix: TestMatrix | None = None
+                               ) -> EnergyHoles:
+    """E_loc, O, log|psi| and the mantissa of torus configurations
+    [nc, Ly, Lx] (see :func:`pbc_energy_and_holes`)."""
+    config = config.long()
+    e, holes, mant, log_abs = pbc_energy_and_holes(
+        tps, config, model, chi, trunc, with_holes, test_matrix)
+    o_tensor = None
+    if with_holes:
+        o_tensor = o_tensor_of(holes, mant[:, None, None].expand(
+            config.shape), config, tps.shape[2])
     return EnergyHoles(e, o_tensor, log_abs, mant)

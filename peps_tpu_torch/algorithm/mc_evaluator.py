@@ -1,4 +1,4 @@
-"""Monte Carlo energy/gradient evaluator (port of the OBC bosonic path of
+"""Monte Carlo energy/gradient evaluator (port of
 ``peps_tpu/algorithm/mc_evaluator.py``).
 
 Per sample step: one sweep of every chain, then local energies and holes of
@@ -18,6 +18,14 @@ bosonic sweep and ratio tables with string signs) and graded fermionic
 states (``GradedFermionModel``: the env-shared graded sweep, without the
 carried bottom stacks, and the graded local energy, whose holes are the
 O entries at the configuration and go to K2 with psi_loc = 1).
+
+On the torus (``bc=PERIODIC``, bosonic models only) a sample step is a
+torus sweep (:mod:`~peps_tpu_torch.montecarlo.sweep_pbc`: the full
+recompute, or the frozen trial/commit sweep with ``MCParams.trial_sweep``)
+and the torus local energy of
+:mod:`~peps_tpu_torch.algorithm.energy_pbc`; its holes and mantissa (as
+psi_loc, the same at every site) go to K2 as the OBC ones do. Each sweep's
+uniforms are then one tensor [nc, 2 Ly Lx].
 """
 from __future__ import annotations
 
@@ -35,6 +43,8 @@ from peps_tpu_torch.lattice import BoundaryCondition, transpose_tps
 from peps_tpu_torch.linalg import TruncParams
 from peps_tpu_torch.montecarlo.statistics import mean_and_binned_error
 from peps_tpu_torch.montecarlo.sweep import UpdateRule, mc_sweep
+from peps_tpu_torch.montecarlo.sweep_pbc import (mc_sweep_pbc,
+                                                 mc_sweep_pbc_trial)
 from peps_tpu_torch.optimizer.optimizer import Evaluation
 from peps_tpu_torch.tps import project
 
@@ -48,6 +58,11 @@ class MCParams:
     # chains per local-energy pass (None: all at once); the env stacks stay
     # at full chain batch, so it bounds the table and hole intermediates
     eval_chunk: int | None = None
+    # torus only: the sample sweeps recompute the whole contraction per
+    # proposal (False, the reference's default off the TPU) or go through
+    # the frozen trial/commit cache (True: cheaper a sweep, but biased at a
+    # truncating chi, ROADMAP section 3)
+    trial_sweep: bool = False
 
 
 UniformSource = Callable[[], tuple]
@@ -67,33 +82,26 @@ def require_bosonic_for_pbc(model, bc) -> None:
             "BoundaryCondition.OPEN")
 
 
-def _pbc_eval_batch(tps, configs, model, chi: int, trunc: TruncParams,
-                    with_grad: bool, eval_chunk: int | None, with_sr: bool):
-    """The PBC local-energy (and holes) pass over chains, eval_chunk chains
-    a call (None: all). Returns (e_loc [nc], O [nc, P] with SR else None,
-    sum of conj(O) [P], sum of E_loc conj(O) [P] without SR, log|psi|
-    [nc]), the reference's per-sample tuple; without a gradient the three
-    O entries are None."""
-    from peps_tpu_torch.algorithm.energy_pbc import \
-        local_energy_and_holes_pbc
-    nc = configs.shape[0]
-    parts = [local_energy_and_holes_pbc(tps, configs[sl], model, chi, trunc,
-                                        with_holes=with_grad)
-             for sl in bmps.chain_slices(nc, eval_chunk)]
-    e_loc = torch.cat([p.e_loc for p in parts])
-    log_abs = torch.cat([p.log_abs_psi for p in parts])
-    if not with_grad:
-        return e_loc, None, None, None, log_abs
-    o_flat = torch.cat([p.o_tensor for p in parts]).reshape(nc, -1)
-    return (e_loc, o_flat if with_sr else None, o_flat.conj().sum(0),
-            None if with_sr else (e_loc[:, None] * o_flat.conj()).sum(0),
-            log_abs)
+def _periodic(bc) -> bool:
+    return bc is not None and bc == BoundaryCondition.PERIODIC
 
 
-def _local_fn(tps, model, chi, trunc, with_grad):
+def _local_fn(tps, model, chi, trunc, with_grad, bc=None):
     """local(configs, stacks) -> (e_loc, holes [n, Ly, Lx, D, D, D, D] or
-    None, psi_loc [n, Ly, Lx] or None, log|psi|) of the model's kind."""
+    None, psi_loc [n, Ly, Lx] or None, log|psi|) of the model's kind (on
+    the torus: the torus local energy, psi_loc the mantissa at every
+    site)."""
     kind = model_kind(model)
+    if _periodic(bc):
+        from peps_tpu_torch.algorithm.energy_pbc import pbc_energy_and_holes
+
+        def local(c, stacks):
+            e, holes, mant, log_abs = pbc_energy_and_holes(
+                tps, c, model, chi, trunc, with_grad)
+            psi = None if holes is None else \
+                mant[:, None, None].expand(c.shape)
+            return e, holes, psi, log_abs
+        return local
     if kind == "jw":
         def local(c, stacks):
             e, tabs = jw_tables_and_energy(tps, c, model, chi, trunc,
@@ -117,10 +125,22 @@ def _local_fn(tps, model, chi, trunc, with_grad):
     return local
 
 
-def _sweep_fn(tps, model, chi, trunc, rule):
-    """sweep(configs, uniforms, bots) -> (configs', accepted, trials) of
-    the model's kind; bots None for the graded sweep, which builds its own
-    bottom stacks."""
+def _sweep_fn(tps, model, chi, trunc, rule, bc=None, trial_sweep=False):
+    """(sweep, shares_stacks): sweep(configs, uniforms, bots) ->
+    (configs', accepted, trials) of the model's kind; bots None for the
+    graded sweep, which builds its own bottom stacks, and for the torus
+    sweeps (trial_sweep: the frozen trial/commit sweep, else the full
+    recompute)."""
+    if _periodic(bc):
+        def sweep(configs, uniforms, bots):
+            if trial_sweep:
+                configs, st = mc_sweep_pbc_trial(tps, configs, chi, trunc,
+                                                 rule, uniforms)
+            else:
+                configs, st = mc_sweep_pbc(tps, configs, chi, trunc, rule,
+                                           uniforms)
+            return configs, st.accepted.sum(), st.trials.sum()
+        return sweep, False
     if model_kind(model) == "graded":
         from peps_tpu_torch.fermion.sweep import mc_sweep_fermion_shared
 
@@ -141,10 +161,13 @@ def _sweep_fn(tps, model, chi, trunc, rule):
 def _mc_collect(tps, configs, model, chi, trunc, n_samples,
                 with_sr, uniform_source, rule: UpdateRule = UpdateRule(),
                 sweeps_between: int = 1, with_grad: bool = True,
-                eval_chunk: int | None = None):
+                eval_chunk: int | None = None, bc=None,
+                trial_sweep: bool = False):
     """Sample loop: sweeps_between sweeps per sample step, the first one
-    from the evaluated network's bottom stack (bosonic and JW models); the
-    local energies and holes of eval_chunk chains at a time (None: all).
+    from the evaluated network's bottom stack (bosonic and JW models on
+    open boundaries); the local energies and holes of eval_chunk chains at
+    a time (None: all). On the torus the sweep is trial_sweep's (see
+    :func:`_sweep_fn`).
     Returns (configs', accepted, trials, outs) with outs a dict: e_locs
     [S, nc], log_psi [S, nc]; with SR: holes [S, nc, Ly, Lx, D^4], psi_loc
     [S, nc, Ly, Lx], cfgs [S, nc, Ly, Lx]; with a plain gradient: o_sum and
@@ -152,8 +175,9 @@ def _mc_collect(tps, configs, model, chi, trunc, n_samples,
     the energies only."""
     ly, lx, d = tps.shape[0], tps.shape[1], tps.shape[2]
     configs = configs.long()
-    sweep, shares_stacks = _sweep_fn(tps, model, chi, trunc, rule)
-    local = _local_fn(tps, model, chi, trunc, with_grad)
+    sweep, shares_stacks = _sweep_fn(tps, model, chi, trunc, rule, bc,
+                                     trial_sweep)
+    local = _local_fn(tps, model, chi, trunc, with_grad, bc)
     bots = None
     if shares_stacks:
         ftops, _ = bmps.all_top_envs(bmps.flip_vertical(project(tps,
@@ -218,13 +242,17 @@ def _center_scale(holes, psi_loc, cfgs, d):
 def mc_energy_only(tps, configs, model, chi: int,
                    trunc: TruncParams, rule: UpdateRule, n_samples: int,
                    uniform_source: UniformSource, sweeps_between: int = 1,
-                   eval_chunk: int | None = None):
+                   eval_chunk: int | None = None,
+                   bc: BoundaryCondition = BoundaryCondition.OPEN,
+                   trial_sweep: bool = False):
     """Energy-only MC estimate, no holes kept and no gradient (the
-    reference's EvaluateEnergyOnly); eval_chunk as in MCParams. Returns
-    (energy, stderr) as 0-d tensors."""
+    reference's EvaluateEnergyOnly); eval_chunk and trial_sweep as in
+    MCParams. Returns (energy, stderr) as 0-d tensors."""
+    require_bosonic_for_pbc(model, bc)
     _, _, _, outs = _mc_collect(tps, configs, model, chi, trunc, n_samples,
                                 False, uniform_source, rule, sweeps_between,
-                                with_grad=False, eval_chunk=eval_chunk)
+                                with_grad=False, eval_chunk=eval_chunk,
+                                bc=bc, trial_sweep=trial_sweep)
     return mean_and_binned_error(outs["e_locs"].real)
 
 
@@ -232,17 +260,20 @@ def mc_energy_grad(tps, configs, model, chi: int,
                    trunc: TruncParams, params: MCParams,
                    uniform_source: UniformSource,
                    with_sr_buffers: bool = False,
-                   rule: UpdateRule = UpdateRule()):
+                   rule: UpdateRule = UpdateRule(),
+                   bc: BoundaryCondition = BoundaryCondition.OPEN):
     """One VMC energy/gradient estimate. Returns (Evaluation, configs',
     log_psi [S, nc]).
 
     g = 2 Re <conj(O) (E_loc - E)> for a real state, as the reference.
-    uniform_source() returns each sweep's uniforms (u_h, u_v). Reads one
-    integer (the non-finite sample count) back to the host."""
+    uniform_source() returns each sweep's uniforms ((u_h, u_v) on open
+    boundaries, [nc, 2 Ly Lx] on the torus). Reads one integer (the
+    non-finite sample count) back to the host."""
+    require_bosonic_for_pbc(model, bc)
     configs, acc, tri, outs = _mc_collect(
         tps, configs, model, chi, trunc, params.num_samples, with_sr_buffers,
         uniform_source, rule, params.sweeps_between_samples,
-        eval_chunk=params.eval_chunk)
+        eval_chunk=params.eval_chunk, bc=bc, trial_sweep=params.trial_sweep)
     e_locs = outs["e_locs"]
     s, c = e_locs.shape
     n = s * c

@@ -1,6 +1,6 @@
-"""Monte Carlo measurement (port of the OBC branches of
-``peps_tpu/algorithm/measure.py``): bosonic spin models, fermionic models
-in the Jordan-Wigner representation and graded fermionic states.
+"""Monte Carlo measurement (port of ``peps_tpu/algorithm/measure.py``):
+bosonic spin models, fermionic models in the Jordan-Wigner representation
+and graded fermionic states; bosonic models on the torus too.
 
 Warm-up sweeps, then a loop of sample steps in chunks: per step
 ``sweeps_between_samples`` sweeps of every chain, the env stacks of the
@@ -22,7 +22,12 @@ walkers share; the reference builds the stacks twice.
 The S+S- walker (:func:`_row_offdiag_corr`) is a scan of column transfers
 (kernel K1 on the card), batched over chains, rows and start columns; the
 pair correlators are in :mod:`peps_tpu_torch.algorithm.measure_fermion`.
-Periodic boundaries wait for the torus sampler (ROADMAP queue 1, item 12).
+
+On the torus (``bc=PERIODIC``, bosonic models) the warm-up and the
+samples take the sweep of ``MeasurementParams.trial_sweep`` (default: the
+full recompute), the local energy is the torus one, and only
+the observables that need no environments are kept (the S+S- walkers
+read open-boundary env stacks), as in the reference.
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ from peps_tpu_torch.algorithm.energy import (_local_energy, model_kind,
                                              model_tensors,
                                              needs_transposed_frame)
 from peps_tpu_torch.algorithm.energy_fermion import jw_tables_and_energy
-from peps_tpu_torch.algorithm.mc_evaluator import _sweep_fn
+from peps_tpu_torch.algorithm.mc_evaluator import (_periodic, _sweep_fn,
+                                                   require_bosonic_for_pbc)
 from peps_tpu_torch.algorithm.registry import (MeasureContext,
                                                fermion_registry,
                                                graded_pair_observables,
@@ -52,6 +58,7 @@ from peps_tpu_torch.montecarlo.statistics import (
     integrated_autocorrelation_time, mean_and_binned_error,
     mean_and_binned_error_batch)
 from peps_tpu_torch.montecarlo.sweep import UpdateRule, draw_uniforms
+from peps_tpu_torch.montecarlo.sweep_pbc import draw_uniforms_pbc
 from peps_tpu_torch.tps import project
 
 
@@ -77,9 +84,12 @@ class MeasureResult(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class MeasurementParams:
-    """The reference's MeasurementParams without its PBC-only fields
-    (host_sweep, fuse_bonds, trial_sweep). eval_chunk / env_chunk: chain
-    batch of the energy pass / of the walker pass (None: all chains)."""
+    """The reference's MeasurementParams without its XLA:TPU-only fields
+    (host_sweep, fuse_bonds). eval_chunk / env_chunk: chain batch of the
+    energy pass / of the walker pass (None: all chains). trial_sweep (torus
+    only): the warm-up and sample sweeps recompute the whole contraction
+    per proposal (False) or go through the frozen trial/commit cache
+    (True, biased at a truncating chi)."""
     num_samples: int = 500
     num_warmup_sweeps: int = 100
     sweeps_between_samples: int = 1
@@ -91,6 +101,7 @@ class MeasurementParams:
     progress: bool = False   # a console line per chunk
     eval_chunk: int | None = None
     env_chunk: int | None = None
+    trial_sweep: bool = False
 
 
 def _one_point_diag(config, site_values):
@@ -150,10 +161,12 @@ def standard_spin_observables(d: int = 2):
     return {"sz_values": sz, "op_a": sp, "op_b": sp.T}
 
 
-def _registry(mt, kind, params, d):
-    """The observables of a model's evaluator form mt of kind ``kind``."""
+def _registry(mt, kind, params, d, periodic=False):
+    """The observables of a model's evaluator form mt of kind ``kind``; on
+    the torus those that need no environments."""
     if kind == "bosonic":
-        return spin_registry(params) if d == 2 else []
+        registry = spin_registry(params) if d == 2 else []
+        return [ob for ob in registry if not (periodic and ob.needs_envs)]
     ft = mt.ft if kind == "graded" else mt
     registry = fermion_registry(ft, params)
     if kind == "graded":
@@ -164,10 +177,16 @@ def _registry(mt, kind, params, d):
     return registry
 
 
-def _energy_pass(tps, tps_t, c, mt, kind, chi, trunc, with_t):
+def _energy_pass(tps, tps_t, c, mt, kind, chi, trunc, with_t,
+                 periodic=False):
     """(e_loc [n], log|psi| [n], stacks, stacks_t) of configurations c: the
     stacks are the graded state's GradedEnvShared or the projection's env
-    stacks (and the transposed frame's with with_t)."""
+    stacks (and the transposed frame's with with_t); None on the torus."""
+    if periodic:
+        from peps_tpu_torch.algorithm.energy_pbc import pbc_energy_and_holes
+        e, _, _, log_abs = pbc_energy_and_holes(tps, c, mt, chi, trunc,
+                                                with_holes=False)
+        return e, log_abs, None, None
     if kind == "graded":
         from peps_tpu_torch.algorithm.measure_fermion import \
             graded_env_shared
@@ -187,10 +206,12 @@ def _energy_pass(tps, tps_t, c, mt, kind, chi, trunc, with_t):
     return e, log_abs, stacks, stacks_t
 
 
-def _sample_outputs(tps, tps_t, cfgs, mt, chi, trunc, registry, params):
+def _sample_outputs(tps, tps_t, cfgs, mt, chi, trunc, registry, params,
+                    periodic=False):
     """Outputs of one sample step for every chain (on the device) and the
     env stacks of cfgs (the next step's first sweep starts from their
-    bottoms; a graded state's are its GradedEnvShared)."""
+    bottoms; a graded state's are its GradedEnvShared; None on the
+    torus)."""
     kind = model_kind(mt)
     cheap = [ob for ob in registry if not ob.needs_envs]
     walkers = [ob for ob in registry if ob.needs_envs]
@@ -202,7 +223,8 @@ def _sample_outputs(tps, tps_t, cfgs, mt, chi, trunc, registry, params):
     for sl in bmps.chain_slices(cfgs.shape[0], params.eval_chunk):
         c = cfgs[sl]
         e, log_abs, stacks, stacks_t = _energy_pass(tps, tps_t, c, mt, kind,
-                                                    chi, trunc, with_t)
+                                                    chi, trunc, with_t,
+                                                    periodic)
         ctx = MeasureContext(tps, tps_t, c, e.real, chi, trunc)
         outs["energy"].append(e.real)
         outs["log_abs_psi"].append(log_abs)
@@ -233,7 +255,9 @@ def measure(tps: torch.Tensor, model, params: MeasurementParams, chi: int,
     model or FermionTensors (Jordan-Wigner: the bosonic sweep under
     ``rule``, e.g. Suwa-Todo with a conservation mask), or a
     GradedFermionModel (the env-shared graded sweep, exchange moves; with
-    measure_pair_corr on a t-J basis the graded pair walkers). configs
+    measure_pair_corr on a t-J basis the graded pair walkers). bc:
+    None or OPEN, or PERIODIC for a bosonic model on the torus (each
+    sweep's uniforms then [nc, 2 Ly Lx]). configs
     [nc, Ly, Lx]: the chains' starting configurations (e.g. a
     VMCResult's final_configs). Random numbers as in vmc_optimize: each
     sweep's uniforms come from ``sweep_uniforms()`` when given (the parity
@@ -248,16 +272,15 @@ def measure(tps: torch.Tensor, model, params: MeasurementParams, chi: int,
     (synchronized) before the clock starts, so it counts the sample loop
     alone, the walker observables included (the reference times its
     walker pass outside the clock)."""
-    if bc is not None and bc != BoundaryCondition.OPEN:
-        raise NotImplementedError(
-            "measurement with periodic boundaries needs the torus sampler: "
-            "ROADMAP queue 1, item 12")
+    periodic = _periodic(bc)
     dev = tps.device
     mt = model_tensors(model, tps.dtype, dev, "measure")
+    require_bosonic_for_pbc(mt, bc)
     kind = model_kind(mt)
     ly, lx, d = tps.shape[0], tps.shape[1], tps.shape[2]
-    registry = _registry(mt, kind, params, d)
-    sweep, shares_stacks = _sweep_fn(tps, mt, chi, trunc, rule)
+    registry = _registry(mt, kind, params, d, periodic)
+    sweep, shares_stacks = _sweep_fn(tps, mt, chi, trunc, rule, bc,
+                                     params.trial_sweep)
     tps_t = transpose_tps(tps)
     configs = configs.to(dev).long()
     nc = configs.shape[0]
@@ -267,6 +290,8 @@ def measure(tps: torch.Tensor, model, params: MeasurementParams, chi: int,
         rdt = tps.real.dtype if tps.is_complex() else tps.dtype
 
         def sweep_uniforms():
+            if periodic:
+                return draw_uniforms_pbc(generator, nc, ly, lx, rdt, dev)
             return draw_uniforms(generator, nc, ly, lx, rdt, dev)
 
     if dev.type == "cuda":
@@ -303,7 +328,8 @@ def measure(tps: torch.Tensor, model, params: MeasurementParams, chi: int,
                     acc_c = acc_c + a
                     tri_c = tri_c + t
                 out, stacks = _sample_outputs(tps, tps_t, configs, mt, chi,
-                                              trunc, registry, params)
+                                              trunc, registry, params,
+                                              periodic)
                 bots = stacks.bots if shares_stacks else None
                 steps.append(out)
             collected.append({k: torch.stack([o[k] for o in steps]).cpu()

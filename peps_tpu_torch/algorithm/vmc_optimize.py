@@ -1,4 +1,4 @@
-"""VMC optimization executor (port of the OBC bosonic branch of
+"""VMC optimization executor (port of
 ``peps_tpu/algorithm/vmc_optimize.py``): initial configurations ->
 validity rescue -> state normalization -> warm-up sweeps ->
 :func:`iterative_optimize` over :func:`mc_energy_grad`.
@@ -11,9 +11,17 @@ tests replace the last two with the reference's replayed uniforms
 configurations. Bosonic models, fermionic models in the Jordan-Wigner
 representation (the bosonic sweep, e.g. Suwa-Todo with a conservation
 mask) and graded fermionic states (a ``GradedFermionModel``: the graded
-rescue, normalization and env-shared sweep). Open boundaries only:
-``bc=PERIODIC`` is refused until the torus sampler (ROADMAP queue 1, item
-12); the torus local energy and exact sums are ported.
+rescue, normalization and env-shared sweep).
+
+On the torus (``bc=PERIODIC``, bosonic models; fermionic ones are refused,
+as the reference refuses them) the warm-up sweeps recompute the whole
+contraction per proposal, as the reference's do on every backend; the
+sample sweeps and the energy-only probes follow ``MCParams.trial_sweep``
+(default: the full recompute). Each sweep's uniforms are one
+tensor [nc, 2 Ly Lx]. As in the reference, the validity rescue and the
+state normalization read the open-boundary amplitude
+(:func:`~peps_tpu_torch.montecarlo.engine.amplitudes`) on the torus too: a
+known fault of the reference, kept so that the trajectories are its own.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from peps_tpu_torch.montecarlo.engine import (ensure_validity,
                                               init_configs_uniform,
                                               normalize_state_order1)
 from peps_tpu_torch.montecarlo.sweep import UpdateRule, draw_uniforms
+from peps_tpu_torch.montecarlo.sweep_pbc import draw_uniforms_pbc
 from peps_tpu_torch.optimizer.optimizer import (MinSRParams, OptimizerParams,
                                                 SRParams, iterative_optimize)
 
@@ -68,13 +77,14 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
                  ) -> VMCResult:
     """Optimize a real or complex OBC TPS for a bosonic model, a JW
     fermionic model or a graded fermionic state (``GradedFermionModel``),
-    on tps.device (the kernels take float32, float64, complex64 and
-    complex128).
+    or a real torus TPS for a bosonic model (``params.bc``), on tps.device
+    (the kernels take float32, float64, complex64 and complex128).
 
     generator: a ``torch.Generator`` on tps.device (default: seeded 0).
     configs: optional initial configurations [nc, Ly, Lx] (default: drawn
     from params.occupancy). sweep_uniforms: optional callable returning each
-    sweep's uniforms (u_h, u_v) in order (default: drawn from generator).
+    sweep's uniforms in order, the warm-up's first ((u_h, u_v); on the
+    torus [nc, 2 Ly Lx]; default: drawn from generator).
     probe_uniforms: the same for the sweeps of the energy-only probes
     (default: drawn from generator; the reference keys probe n with
     fold_in(sampler key, n) instead). A probe samples from the current
@@ -86,10 +96,7 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
                          f"physical dimension {d} (tps shape {tps.shape})")
     mt = model_tensors(model, tps.dtype, dev, "vmc_optimize")
     require_bosonic_for_pbc(mt, params.bc)
-    if params.bc != BoundaryCondition.OPEN:
-        raise NotImplementedError(
-            "vmc_optimize with periodic boundaries needs the torus sampler: "
-            "ROADMAP queue 1, item 12")
+    periodic = params.bc == BoundaryCondition.PERIODIC
     graded = model_kind(mt) == "graded"
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -97,6 +104,8 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
     nc = params.mc.nchains if configs is None else configs.shape[0]
 
     def draw():
+        if periodic:
+            return draw_uniforms_pbc(generator, nc, ly, lx, rdt, dev)
         return draw_uniforms(generator, nc, ly, lx, rdt, dev)
 
     sweep_uniforms = sweep_uniforms or draw
@@ -122,7 +131,8 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
         configs, _ = ensure_validity(tps, configs, generator, params.chi,
                                      params.trunc)
         tps = normalize_state_order1(tps, configs, params.chi, params.trunc)
-    sweep, _ = _sweep_fn(tps, mt, params.chi, params.trunc, params.rule)
+    sweep, _ = _sweep_fn(tps, mt, params.chi, params.trunc, params.rule,
+                         params.bc, trial_sweep=False)
     for _ in range(params.mc.num_warmup_sweeps):
         configs, _, _ = sweep(configs, sweep_uniforms(), None)
 
@@ -134,7 +144,7 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
         ev, cfgs, _ = mc_energy_grad(
             state, sampler["configs"], mt, params.chi, params.trunc,
             params.mc, sweep_uniforms,
-            with_sr_buffers=needs_sr, rule=params.rule)
+            with_sr_buffers=needs_sr, rule=params.rule, bc=params.bc)
         sampler["configs"] = cfgs
         return ev
 
@@ -143,7 +153,8 @@ def vmc_optimize(tps: torch.Tensor, model, params: VMCParams,
                               params.trunc, params.rule,
                               params.mc.num_samples, probe_uniforms,
                               params.mc.sweeps_between_samples,
-                              eval_chunk=params.mc.eval_chunk)
+                              eval_chunk=params.mc.eval_chunk, bc=params.bc,
+                              trial_sweep=params.mc.trial_sweep)
         return e
 
     result = iterative_optimize(tps, evaluate, params.optimizer,

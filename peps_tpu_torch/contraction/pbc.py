@@ -222,11 +222,14 @@ def _absorb_pair(pb, a, b, pt):
 
 
 def _pair_truncate(tn, chi: int, trunc: TruncParams, inv_relative_eps: float,
-                   test_matrix=None):
+                   test_matrix=None, return_projs: bool = False):
     """Contract column pairs and truncate the doubled vertical bonds without
     forming the merged pair tensor: the bond Grams and the projector
     absorption go against the unmerged pair (a, b). tn [..., n, nx, u, l,
-    d, r] -> [..., n, nx/2, chi', l, chi', r]."""
+    d, r] -> [..., n, nx/2, chi', l, chi', r]; with return_projs also the
+    absorb-ready projector grids (pb [..., n, nx/2, chi', du, dU], pt
+    [..., n, nx/2, dd, dD, chi']) indexed by output node, which the
+    trial/commit cache keeps."""
     a = tn[..., :, 0::2, :, :, :, :]                  # [.., y, x, u, l, d, k]
     b = tn[..., :, 1::2, :, :, :, :]                  # [.., y, x, U, k, D, r]
     du, dU, dd, dD = a.shape[-4], b.shape[-4], a.shape[-2], b.shape[-2]
@@ -248,14 +251,17 @@ def _pair_truncate(tn, chi: int, trunc: TruncParams, inv_relative_eps: float,
     pb = torch.roll(p_bot, 1, dims=-4).reshape(*p_bot.shape[:-2], chi_eff,
                                                du, dU)
     pt = p_top.reshape(*p_top.shape[:-2], dd, dD, chi_eff)
-    return _absorb_pair(pb, a, b, pt)
+    out = _absorb_pair(pb, a, b, pt)
+    return (out, (pb, pt)) if return_projs else out
 
 
 def _truncate_vertical_merged(m, chi: int, trunc: TruncParams,
-                              inv_relative_eps: float, test_matrix=None):
+                              inv_relative_eps: float, test_matrix=None,
+                              return_projs: bool = False):
     """Projectors on every vertical bond of a merged m [..., n, nx, U, l,
     D_, r] (the 3-column path, small enough to form), absorbed:
-    [..., n, nx, chi, l, chi, r]."""
+    [..., n, nx, chi, l, chi, r]; with return_projs also the absorb-ready
+    (pb [..., n, nx, chi, U], pt [..., n, nx, D_, chi]) by output node."""
     g_top = torch.einsum("...uldr,...ulEr->...dE", m, m.conj())
     m2 = torch.roll(m, -1, dims=-6)
     g_bot = torch.einsum("...uldr,...Vldr->...uV", m2, m2.conj())
@@ -263,7 +269,8 @@ def _truncate_vertical_merged(m, chi: int, trunc: TruncParams,
                                         inv_relative_eps, test_matrix)
     p_bot_u = torch.roll(p_bot, 1, dims=-4)
     out = torch.einsum("...ulDr,...Dc->...ulcr", m, p_top)
-    return torch.einsum("...ku,...ulcr->...klcr", p_bot_u, out)
+    out = torch.einsum("...ku,...ulcr->...klcr", p_bot_u, out)
+    return (out, (p_bot_u, p_top)) if return_projs else out
 
 
 def _transpose_frame(tn):

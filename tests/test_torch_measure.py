@@ -372,17 +372,18 @@ def test_measure_stops_after_the_chunk_on_a_signal():
 
 
 def test_measure_rejects_what_the_port_lacks():
-    """Periodic boundaries are refused (with and without the pair
-    correlators, which fermionic states now take) and so is an object that
-    is no model."""
+    """Fermionic models are refused on the torus (with and without the
+    pair correlators; the torus contractor is boson-only, as the
+    reference's) and so is an object that is no model."""
     tps = torch.zeros(2, 2, 2, 1, 1, 1, 1, dtype=torch.float64)
     cfg = torch.zeros(1, 2, 2, dtype=torch.int64)
     tp = TruncParams(2)
     from peps_tpu_torch.lattice import BoundaryCondition
+    from peps_tpu_torch.models.fermion import spinless_fermion
     for params in (measure.MeasurementParams(),
                    measure.MeasurementParams(measure_pair_corr=True)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            measure.measure(tps, spin.heisenberg(), params, 2, tp,
+        with pytest.raises(ValueError, match="boson-only"):
+            measure.measure(tps, spinless_fermion(1.0, 0.5), params, 2, tp,
                             UpdateRule(), cfg, bc=BoundaryCondition.PERIODIC)
     with pytest.raises(NotImplementedError, match="the port takes bosonic"):
         measure.measure(tps, object(), measure.MeasurementParams(), 2, tp,

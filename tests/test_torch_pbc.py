@@ -12,6 +12,8 @@ number), 1e-12 for the SVD backward fed the same factors, 1e-6 against ED
 (the limit tests/test_pbc.py uses); float32 within 1e-4 relative (the
 float32 round-off through the Grams' factorizations).
 """
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -306,31 +308,107 @@ def test_local_energy_pbc_float32():
     assert rel(e32.double().numpy(), e64.numpy()) < 1e-4
 
 
+def test_local_energy_pbc_float32_at_card_nan_configuration():
+    """The 4x4 D=3 torus state an H100 built (chip_smoke phase 12, float32)
+    and a configuration whose float32 E_loc (chi=12, the fast scheme with
+    one power iteration and trunc_err 1e-6) came out NaN on that card
+    (tests/data/pbc_eloc_nan.pt): the reference's float32 E_loc there is
+    finite, and the port's on the CPU, float32 and float64, within 1e-4
+    relative of it."""
+    fx = torch.load(Path(__file__).parent / "data" / "pbc_eloc_nan.pt")
+    tps, cfg = fx["tps"], fx["config"][None]
+    chi = 12
+    jm = JModelTensors.from_model(jspin.heisenberg(1.0), jnp.float32)
+    want = float(j_le(jnp.asarray(tps.numpy()), jnp.asarray(cfg[0].numpy()),
+                      jm, chi, JTrunc(chi, 1, 1e-6, scheme="fast",
+                                      rsvd_power=1)).e_loc)
+    assert np.isfinite(want)
+    tp = TruncParams(chi, 1, 1e-6, scheme="fast", rsvd_power=1)
+    model = spin.heisenberg(1.0)
+    for dt in (torch.float32, torch.float64):
+        got = local_energy_and_holes_pbc(
+            tps.to(dt), cfg, ModelTensors.from_model(model, dt, "cpu"), chi,
+            tp, with_holes=False, test_matrix=jax_test_matrix).e_loc
+        assert abs(float(got[0]) - want) < 1e-4 * abs(want)
+
+
+def test_local_energy_pbc_leaves_out_unreached_non_finite_entries(
+        monkeypatch):
+    """A replaced pair whose contraction is NaN (mantissa and log-weight)
+    where h[c1, c2, p, q] = 0 (here the Sz-violating (0, 0) of every bond
+    of a Neel configuration of the Heisenberg torus) leaves E_loc as it
+    was within 1e-12 relative (the bond's scale then comes from its other
+    entries); a NaN where h reaches (the exchange (1, 0)) makes it NaN."""
+    from peps_tpu_torch.algorithm import energy_pbc
+    tps = torch.as_tensor(tps_of(15, 2, 2, 2, 2))
+    cfg = torch.tensor([[[0, 1], [1, 0]]])
+    mt = ModelTensors.from_model(spin.heisenberg(1.0), torch.float64, "cpu")
+    tp = TruncParams(8, 1, 0.0, scheme="fast", rsvd_power=1)
+    want = energy_pbc.pbc_energy_and_holes(tps, cfg, mt, 8, tp,
+                                           with_holes=False)[0]
+    contract = energy_pbc.contract_pbc
+
+    def poisoned(p, q):
+        def f(net, *args, **kwargs):
+            mant, logw = contract(net, *args, **kwargs)
+            if net.dim() == 10:       # the bond tables' [nc, Nb, d, d, ...]
+                mant, logw = mant.clone(), logw.clone()
+                mant[:, :, p, q] = logw[:, :, p, q] = float("nan")
+            return mant, logw
+        return f
+
+    monkeypatch.setattr(energy_pbc, "contract_pbc", poisoned(0, 0))
+    got = energy_pbc.pbc_energy_and_holes(tps, cfg, mt, 8, tp,
+                                          with_holes=False)[0]
+    assert torch.isfinite(got).all()
+    assert rel(got.numpy(), want.numpy()) < 1e-12
+    monkeypatch.setattr(energy_pbc, "contract_pbc", poisoned(1, 0))
+    got = energy_pbc.pbc_energy_and_holes(tps, cfg, mt, 8, tp,
+                                          with_holes=False)[0]
+    assert torch.isnan(got).all()
+
+
 @pytest.mark.parametrize("with_sr", [True, False])
 def test_pbc_eval_batch_matches_reference_and_chunks(with_sr):
-    """The evaluator's PBC pass: the reference's per-sample tuple, and the
-    same values with eval_chunk 2 as with all chains at once."""
+    """The evaluator's PBC pass (one sample step of _mc_collect on the
+    torus, full-recompute sweep): the reference's per-sample tuple
+    (its _pbc_eval_batch) of the configurations after the step's sweep,
+    and the same values with eval_chunk 2 as with all chains at once."""
+    from peps_tpu_torch.algorithm.energy import o_tensor_of
     tps = tps_of(15, 2, 2, 2, 2)
     cfg = np.random.default_rng(16).integers(0, 2, size=(5, 2, 2))
+    u = torch.rand(5, 8, generator=torch.Generator().manual_seed(17),
+                   dtype=torch.float64)
     tp = TruncParams(8, 1, 0.0)
     model = ModelTensors.from_model(spin.heisenberg(1.0), torch.float64,
                                     "cpu")
     jm = JModelTensors.from_model(jspin.heisenberg(1.0), jnp.float64)
-    want = j_mce._pbc_eval_batch(jnp.asarray(tps), jnp.asarray(cfg), jm, 8,
-                                 JTrunc(8, 1, 0.0), True, None, with_sr)
+
+    def step(chunk, with_grad=True):
+        return mc_evaluator._mc_collect(
+            torch.as_tensor(tps), torch.as_tensor(cfg), model, 8, tp, 1,
+            with_sr, lambda: u, with_grad=with_grad, eval_chunk=chunk,
+            bc=PBC, trial_sweep=False)
+
     for chunk in (None, 2):
-        got = mc_evaluator._pbc_eval_batch(
-            torch.as_tensor(tps), torch.as_tensor(cfg), model, 8, tp, True,
-            chunk, with_sr)
-        for g, w in zip(got, want):
-            assert (g is None) == (w is None)
-            if g is not None:
-                assert rel(g.numpy(), np.asarray(w)) < 1e-10
-    e_only = mc_evaluator._pbc_eval_batch(
-        torch.as_tensor(tps), torch.as_tensor(cfg), model, 8, tp, False, 2,
-        with_sr)
-    assert e_only[1:4] == (None, None, None)
-    assert rel(e_only[0].numpy(), np.asarray(want[0])) < 1e-10
+        cfgs, _, _, outs = step(chunk)
+        want = j_mce._pbc_eval_batch(jnp.asarray(tps),
+                                     jnp.asarray(cfgs.numpy()), jm, 8,
+                                     JTrunc(8, 1, 0.0), True, None, with_sr)
+        assert rel(outs["e_locs"][0].numpy(), np.asarray(want[0])) < 1e-10
+        assert rel(outs["log_psi"][0].numpy(), np.asarray(want[4])) < 1e-10
+        if with_sr:
+            o = o_tensor_of(outs["holes"][0].reshape(5, 2, 2, 2, 2, 2, 2),
+                            outs["psi_loc"][0], outs["cfgs"][0], 2)
+            assert rel(o.reshape(5, -1).numpy(), np.asarray(want[1])) < 1e-10
+            assert want[3] is None
+        else:
+            assert rel(outs["o_sum"].numpy(), np.asarray(want[2])) < 1e-10
+            assert rel(outs["eo_sum"].numpy(), np.asarray(want[3])) < 1e-10
+            assert want[1] is None
+    cfgs, _, _, outs = step(2, with_grad=False)
+    assert set(outs) == {"e_locs", "log_psi"}
+    assert rel(outs["e_locs"][0].numpy(), np.asarray(want[0])) < 1e-10
 
 
 # ------------------------------------------------------------ exact sums
@@ -401,8 +479,9 @@ def test_pbc_exact_sum_evaluation_matches_reference():
 
 def test_pbc_refusals():
     """Fermionic models are refused on the torus (boson-only, as the
-    reference's); vmc_optimize and measure() on the torus wait for the
-    torus sampler (queue 1, item 12)."""
+    reference's), by the evaluator, the exact sums, vmc_optimize and
+    measure(); with a bosonic model vmc_optimize and measure() run on the
+    torus (a 2x2 state, one sample of two chains)."""
     from peps_tpu_torch.algorithm.measure import MeasurementParams, measure
     from peps_tpu_torch.algorithm.vmc_optimize import VMCParams, vmc_optimize
     from peps_tpu_torch.algorithm.mc_evaluator import MCParams
@@ -414,18 +493,34 @@ def test_pbc_refusals():
         mc_evaluator.require_bosonic_for_pbc(fm, PBC)
     mc_evaluator.require_bosonic_for_pbc(fm, BoundaryCondition.OPEN)
     tps = torch.as_tensor(tps_of(0, 2, 2, 2, 2))
-    cfg = np.zeros((1, 2, 2), np.int32)
+    cfg = np.array([[[0, 1], [1, 0]]] * 2, np.int32)
     with pytest.raises(ValueError, match="boson-only"):
         exact_sum.exact_sum_energy_gradient(tps, cfg, fm, 8, TruncParams(8),
                                             bc=PBC)
     params = VMCParams(chi=8, trunc=TruncParams(8),
-                       mc=MCParams(num_samples=1, nchains=2),
+                       mc=MCParams(num_samples=1, num_warmup_sweeps=1,
+                                   nchains=2),
                        optimizer=OptimizerParams(1, SGDParams()), bc=PBC)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        vmc_optimize(tps, spin.heisenberg(1.0), params)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        measure(tps, spin.heisenberg(1.0), MeasurementParams(), 8,
-                TruncParams(8), UpdateRule(), torch.as_tensor(cfg), bc=PBC)
+    mparams = MeasurementParams(num_samples=1, num_warmup_sweeps=1,
+                                nchains=2)
+    for model in (fm, spin.heisenberg(1.0)):
+        run_vmc = lambda: vmc_optimize(tps, model, params,
+                                       configs=torch.as_tensor(cfg))
+        run_measure = lambda: measure(tps, model, mparams, 8, TruncParams(8),
+                                      UpdateRule(), torch.as_tensor(cfg),
+                                      bc=PBC)
+        if model is fm:
+            for run in (run_vmc, run_measure):
+                with pytest.raises(ValueError, match="boson-only"):
+                    run()
+            continue
+        out = run_vmc()
+        assert len(out.energies) == 1 and np.isfinite(out.energies[0])
+        assert torch.equal(out.final_configs.sum((1, 2)),
+                           torch.tensor([2, 2]))
+        res = run_measure()
+        assert set(res.stats) == {"energy", "sz", "szsz"}
+        assert np.isfinite(res.stats["energy"][0])
 
 
 # ------------------------------------------------------------ compress_sketch
